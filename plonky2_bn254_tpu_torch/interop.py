@@ -1,0 +1,65 @@
+"""Carry inputs, tables and proofs between numpy and this package.
+
+Residues live in int64 tensors with the u64 bit pattern, so conversion is a
+reinterpreting view in both directions.  `proof_to_fields` flattens a
+`prover.prove.Proof` into numpy arrays and python ints under the field names
+of the JAX package's `Proof`, so the two packages' proofs can be compared
+and handed to either verifier.  This module imports no JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def tensor_from_u64(arr: np.ndarray, device=None) -> torch.Tensor:
+    """numpy uint64 array -> int64 tensor with the same bit pattern."""
+    arr = np.ascontiguousarray(arr, dtype=np.uint64)
+    return torch.from_numpy(arr.view(np.int64).copy()).to(device)
+
+
+def u64_from_tensor(t: torch.Tensor) -> np.ndarray:
+    """int64 tensor -> numpy uint64 array with the same bit pattern."""
+    return t.detach().cpu().contiguous().numpy().view(np.uint64).copy()
+
+
+def _ext_list(vals):
+    return [(int(v.c0), int(v.c1)) for v in vals]
+
+
+def _u64(a) -> np.ndarray:
+    return np.asarray(a, dtype=np.uint64)
+
+
+def proof_to_fields(proof) -> dict:
+    """A Proof as nested dicts/lists of numpy uint64 arrays and python ints,
+    keyed by the fields of `Proof`, `Openings`, `FriProof` and
+    `FriLayerProof`; extension values become (c0, c1) tuples."""
+    o = proof.openings
+    return {
+        "degree_bits": int(proof.degree_bits),
+        "trace_cap": _u64(proof.trace_cap),
+        "aux_cap": _u64(proof.aux_cap),
+        "quotient_cap": _u64(proof.quotient_cap),
+        "openings": {
+            name: _ext_list(getattr(o, name))
+            for name in ("trace_zeta", "trace_zeta_g", "aux_zeta", "aux_zeta_g",
+                         "quotient_zeta", "quotient_zeta_g")
+        },
+        "fri": {
+            "layer_caps": [_u64(c) for c in proof.fri.layer_caps],
+            "final_coeffs": _ext_list(proof.fri.final_coeffs),
+            "pow_nonce": int(proof.fri.pow_nonce),
+        },
+        "query_indices": [int(i) for i in proof.query_indices],
+        "query_initials": [
+            [(_u64(row), [_u64(p) for p in path]) for row, path in q]
+            for q in proof.query_initials
+        ],
+        "fri_query_layers": [
+            [{"group_values": _u64(lp.group_values), "path": [_u64(p) for p in lp.path]}
+             for lp in q]
+            for q in proof.fri_query_layers
+        ],
+    }

@@ -1,0 +1,499 @@
+"""STARK prover with host Fiat-Shamir: device stages between challenger squeezes.
+
+Port of `plonky2_bn254_tpu/prover/prove.py` (the host-challenger path).  The
+stages run eagerly on the device of the trace tensor, and every Fiat-Shamir
+challenge is a python int that enters the tensor ops as a scalar:
+
+  S1 commit(trace)                 -> coeffs/LDE/Merkle levels/cap
+  S2 aux(trace, beta, gamma)       -> LogUp helpers+Z, CTL Z  -> commit
+  S3 quotient(ldes, challenges)    -> alpha-combined quotient chunks -> commit
+  S4 openings(coeffs, zeta)        -> f_i(zeta), f_i(zeta*g)
+  S5 fri(ldes, openings, alpha)    -> reduced oracle F + fold layers + trees
+
+Commits go through the hand kernels: iNTT (K3), coset LDE (K4) and the
+Merkle sponge (K1); the FRI grind uses K2.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from ..field import goldilocks as gl
+from ..field import ntt, ntt_cuda
+from ..field.extension import Ext, GLExt
+from ..interop import tensor_from_u64, u64_from_tensor
+from ..starks.air import GL, ConstraintConsumer, GLRing
+from ..starks.table import KeyedLookup, Stark
+from ..utils import timing as timing_mod
+from . import constraints as cons
+from . import fri as fri_mod
+from .challenger import Challenger
+from .config import StarkConfig
+from .merkle import device_tree_levels, gather_paths_dev
+from .poly_batch import bit_rev_perm, leaf_rows
+
+# Rows of the LDE coset per quotient chunk: bounds the plain-torch
+# temporaries of the constraint evaluation.
+QUOTIENT_CHUNK = 1 << 14
+
+
+def _dev_vec(values, device) -> torch.Tensor:
+    """Python ints (u64 values) -> int64 tensor on `device`."""
+    return tensor_from_u64(np.array([int(v) % (1 << 64) for v in values], dtype=np.uint64),
+                           device)
+
+
+def ext_scale(v: Ext, k: GLExt) -> Ext:
+    """Ext tensor times a scalar extension value."""
+    k1w = 7 * k.c1 % gl.P
+    return Ext(
+        gl.add(gl.mul(v.c0, k.c0), gl.mul(v.c1, k1w)),
+        gl.add(gl.mul(v.c0, k.c1), gl.mul(v.c1, k.c0)),
+    )
+
+
+def _mod_dot(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
+    """sum_j mat[..., j] * vec[j] mod p via log-depth pairwise reduction."""
+    prod = gl.mul(mat, vec)
+    n = prod.shape[-1]
+    while n > 1:
+        half = n // 2
+        prod = gl.add(prod[..., :half], prod[..., half : 2 * half])
+        n = half
+    return prod[..., 0]
+
+
+def _ext_powers(z: GLExt, n: int, device) -> Ext:
+    """[z^0 .. z^{n-1}] by doubling concatenation."""
+    pows = Ext.one((1,), device)
+    cur = z
+    while pows.c0.shape[0] < n:
+        scaled = ext_scale(pows, cur)
+        pows = Ext(torch.cat([pows.c0, scaled.c0]), torch.cat([pows.c1, scaled.c1]))
+        cur = cur * cur
+    return Ext(pows.c0[:n], pows.c1[:n])
+
+
+def _rev_cumsum(values: torch.Tensor) -> torch.Tensor:
+    """Reversed inclusive prefix sum mod p along the last axis, by doubling
+    (torch.cumsum would add mod 2^64)."""
+    acc = values.flip(-1)
+    d = 1
+    n = acc.shape[-1]
+    while d < n:
+        acc = torch.cat([acc[..., :d], gl.add(acc[..., d:], acc[..., :-d])], dim=-1)
+        d *= 2
+    return acc.flip(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _domain_arrays(n_log: int, rate_bits: int, device: torch.device):
+    """(xs, inv_z_h, z_last, l_first, l_last) on the LDE coset, per device."""
+    n = 1 << n_log
+    big_n_log = n_log + rate_bits
+    N = 1 << big_n_log
+    shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
+    g_big_pows = tensor_from_u64(ntt._coset_powers(N, gl.primitive_root_of_unity(big_n_log)),
+                                 device)
+    xs = gl.mul_const(g_big_pows, shift)
+    g2 = pow(gl.primitive_root_of_unity(big_n_log), n, gl.P)
+    shift_n = pow(shift, n, gl.P)
+    xn_period = tensor_from_u64(ntt._coset_powers(1 << rate_bits, g2), device)
+    xn = gl.mul_const(xn_period.repeat(N >> rate_bits), shift_n)
+    z_h = gl.sub(xn, 1)
+    inv_z_h = gl.batch_inv(z_h)
+    g = gl.primitive_root_of_unity(n_log)
+    g_last = pow(g, n - 1, gl.P)
+    z_last = gl.sub(xs, g_last)
+    n_inv = gl.h_inv(n)
+    l_first = gl.mul(z_h, gl.batch_inv(gl.mul_const(gl.sub(xs, 1), n)))
+    l_last = gl.mul(gl.mul_const(z_h, g_last * n_inv % gl.P), gl.batch_inv(z_last))
+    return xs, inv_z_h, z_last, l_first, l_last
+
+
+# ---------------------------------------------------------------------------
+# stages
+# ---------------------------------------------------------------------------
+
+
+def commit_values(values: torch.Tensor, config: StarkConfig, tt=None):
+    """[k, n] values -> (coeffs [k, n], LDE [k, N], Merkle levels)."""
+    tt = timing_mod.get(tt)
+    with tt.scope("intt"):
+        coeffs = ntt_cuda.intt(values.contiguous())
+    with tt.scope("lde"):
+        lde = ntt_cuda.coset_lde(coeffs, config.rate_bits)
+    with tt.scope("merkle"):
+        levels = device_tree_levels(leaf_rows(lde), config.cap_height)
+    return coeffs, lde, levels
+
+
+def commit_coeffs(coeffs: torch.Tensor, config: StarkConfig):
+    """[k, n] coefficients -> (LDE [k, N], Merkle levels)."""
+    lde = ntt_cuda.coset_lde(coeffs.contiguous(), config.rate_bits)
+    return lde, device_tree_levels(leaf_rows(lde), config.cap_height)
+
+
+def _make_aux(stark: Stark):
+    """Aux-column pipeline: LogUp helper pairs and Z per lookup, CTL Z per
+    CTL, for each challenge set."""
+
+    def aux_core(trace_cols, betas, gammas, ctl_weight_specs):
+        """betas/gammas: python ints per challenge; ctl_weight_specs: per
+        challenge, per ctl, (col_idx [k], weights [k]) tensors."""
+        dev = trace_cols.device
+
+        def idx(cols):
+            return torch.tensor(list(cols), dtype=torch.int64, device=dev)
+
+        aux = []
+        for i in range(len(ctl_weight_specs)):
+            gamma_c = gammas[i]
+            beta_c = betas[i]
+            for lk in stark.lookups:
+                filt_idx = None
+                if isinstance(lk, KeyedLookup):
+                    cols = gl.add(
+                        gl.add(trace_cols[idx(k for k, _ in lk.pairs)],
+                               gl.mul(trace_cols[idx(v for _, v in lk.pairs)], beta_c)),
+                        gamma_c,
+                    )
+                    table_raw = gl.add(
+                        gl.add(trace_cols[lk.table_key_col],
+                               gl.mul(trace_cols[lk.table_val_col], beta_c)),
+                        gamma_c,
+                    )
+                    filt_idx = getattr(lk, "filters", None)
+                else:
+                    cols = gl.add(trace_cols[idx(lk.columns)], gamma_c)
+                    table_raw = gl.add(trace_cols[lk.table_col], gamma_c)
+                inv_cols = gl.batch_inv(cols)
+                if filt_idx is not None:
+                    # helper terms become filter/(gamma+entry); None = unfiltered
+                    filt = torch.stack([
+                        trace_cols[f] if f is not None else torch.ones_like(trace_cols[0])
+                        for f in filt_idx
+                    ])
+                    inv_cols = gl.mul(inv_cols, filt)
+                even = inv_cols[0::2]
+                odd = inv_cols[1::2]
+                if odd.shape[0] < even.shape[0]:
+                    odd = torch.cat([odd, torch.zeros_like(even[:1])], dim=0)
+                helpers = gl.add(even, odd)
+                table_inv = gl.batch_inv(table_raw)
+                freq = trace_cols[lk.freq_col]
+                aux.append(helpers)
+                h_sum = cons.tree_reduce0(helpers)
+                contribution = gl.sub(h_sum, gl.mul(freq, table_inv))
+                aux.append(_rev_cumsum(contribution)[None])
+            for c_idx, ctl in enumerate(stark.ctls):
+                col_idx, weights = ctl_weight_specs[i][c_idx]
+                weighted = gl.mul(trace_cols[col_idx], weights[:, None])
+                acc = gl.add(cons.tree_reduce0(weighted), gamma_c)
+                filt = trace_cols[ctl.filter_col]
+                aux.append(_rev_cumsum(gl.mul(filt, gl.batch_inv(acc)))[None])
+        return torch.cat(aux, dim=0)
+
+    return aux_core
+
+
+def _make_quotient(stark: Stark, n_log: int, config: StarkConfig):
+    """Quotient evaluation in LDE-point chunks, then Z_H division, iNTT and
+    the degree split."""
+    n = 1 << n_log
+    rate = config.rate_bits
+    N = n << rate
+    step = 1 << rate
+    C = min(N, QUOTIENT_CHUNK)
+    shift_inv_pows_np = ntt._coset_powers(N, gl.h_inv(gl.MULTIPLICATIVE_GROUP_GENERATOR))
+    ctl_static_cols = tuple(
+        tuple(c for c, _ in ctl.flat_weights(1, gl.P)) for ctl in stark.ctls
+    )
+
+    def chunk_eval(t_loc, t_nxt, a_loc, a_nxt, zl, lf, ll,
+                   alphas, alpha_pows, challenges, ctl_totals, weight_arrays):
+        ring = GLRing((t_loc.shape[1],), t_loc.device)
+        local = [GL(t_loc[j]) for j in range(t_loc.shape[0])]
+        next_ = [GL(t_nxt[j]) for j in range(t_nxt.shape[0])]
+        aux_local = [GL(a_loc[j]) for j in range(a_loc.shape[0])]
+        aux_next = [GL(a_nxt[j]) for j in range(a_nxt.shape[0])]
+        consumer = ConstraintConsumer(
+            ring, [ring.const(a) for a in alphas], GL(zl), GL(lf), GL(ll),
+            alpha_pows=alpha_pows,
+        )
+        cons.eval_all_constraints(
+            consumer, ring, stark, local, next_, aux_local, aux_next,
+            challenges, ctl_totals,
+            ctl_weight_specs=(ctl_static_cols, weight_arrays),
+        )
+        return torch.stack([acc.v for acc in consumer.accs])
+
+    def quotient_core(t_lde, a_lde, alphas, alpha_pows, challenges, ctl_totals,
+                      weight_arrays):
+        dev = t_lde.device
+        xs, inv_z_h, z_last, l_first, l_last = _domain_arrays(n_log, rate, dev)
+        t_nxt = torch.roll(t_lde, -step, dims=1)
+        a_nxt = torch.roll(a_lde, -step, dims=1)
+        acc_parts = []
+        for lo in range(0, N, C):
+            sl = slice(lo, lo + C)
+            acc_parts.append(
+                chunk_eval(
+                    t_lde[:, sl], t_nxt[:, sl], a_lde[:, sl], a_nxt[:, sl],
+                    z_last[sl], l_first[sl], l_last[sl],
+                    alphas, alpha_pows, challenges, ctl_totals, weight_arrays,
+                )
+            )
+        accs = torch.cat(acc_parts, dim=1)
+        shift_inv_pows = tensor_from_u64(shift_inv_pows_np, dev)
+        q_coeffs = gl.mul(ntt_cuda.intt(gl.mul(accs, inv_z_h[None])), shift_inv_pows[None])
+        return torch.stack([half for q in q_coeffs for half in (q[:n], q[n:])])
+
+    return quotient_core
+
+
+def _openings(coeffs: torch.Tensor, z: GLExt):
+    """(c0, c1) of f_i(z) for every row of `coeffs`, as numpy u64."""
+    p = _ext_powers(z, coeffs.shape[-1], coeffs.device)
+    return torch.stack([_mod_dot(coeffs, p.c0), _mod_dot(coeffs, p.c1)])
+
+
+@functools.lru_cache(maxsize=None)
+def _xs_np(N: int):
+    return ntt._coset_powers(N, gl.primitive_root_of_unity(N.bit_length() - 1))
+
+
+def _fri_oracle(lde_batches, alpha_pows_rows, s_zeta, s_zeta_g, zeta, zeta_g, alpha_off):
+    """F = (S - S(zeta)) / (x - zeta) + alpha^n (S - S(zeta g)) / (x - zeta g)
+    on the LDE coset, with S = sum_j alpha^j f_j."""
+    dev = lde_batches[0].device
+    N = lde_batches[0].shape[-1]
+    S0 = torch.zeros(N, dtype=torch.int64, device=dev)
+    S1 = torch.zeros(N, dtype=torch.int64, device=dev)
+    off = 0
+    for lde in lde_batches:
+        k = lde.shape[0]
+        ap = tensor_from_u64(np.array(alpha_pows_rows[off : off + k], dtype=np.uint64), dev)
+        # f_j are base-field: (alpha^j * f_j).c0 = p0_j f_j, .c1 = p1_j f_j
+        S0 = gl.add(S0, cons.tree_reduce0(gl.mul(lde, ap[:, 0:1])))
+        S1 = gl.add(S1, cons.tree_reduce0(gl.mul(lde, ap[:, 1:2])))
+        off += k
+    assert off == len(alpha_pows_rows)
+    xs = gl.mul_const(tensor_from_u64(_xs_np(N), dev), gl.MULTIPLICATIVE_GROUP_GENERATOR)
+
+    def reduced(point: GLExt, s_at: GLExt) -> Ext:
+        d0 = gl.sub(xs, point.c0)
+        d1 = torch.full_like(xs, gl.i64((-point.c1) % gl.P))
+        norm = gl.sub(gl.square(d0), gl.mul_const(gl.square(d1), 7))
+        ninv = gl.batch_inv(norm)
+        inv_diff = Ext(gl.mul(d0, ninv), gl.mul(gl.neg(d1), ninv))
+        num = Ext(gl.sub(S0, s_at.c0), gl.sub(S1, s_at.c1))
+        return num * inv_diff
+
+    b = reduced(zeta, s_zeta)
+    bg = ext_scale(reduced(zeta_g, s_zeta_g), alpha_off)
+    return Ext(gl.add(b.c0, bg.c0), gl.add(b.c1, bg.c1))
+
+
+# ---------------------------------------------------------------------------
+# proof container
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Openings:
+    trace_zeta: List[GLExt]
+    trace_zeta_g: List[GLExt]
+    aux_zeta: List[GLExt]
+    aux_zeta_g: List[GLExt]
+    quotient_zeta: List[GLExt]
+    quotient_zeta_g: List[GLExt]
+
+    def all_polys_order(self):
+        return (
+            (self.trace_zeta, self.trace_zeta_g),
+            (self.aux_zeta, self.aux_zeta_g),
+            (self.quotient_zeta, self.quotient_zeta_g),
+        )
+
+
+@dataclass
+class Proof:
+    degree_bits: int
+    trace_cap: np.ndarray
+    aux_cap: np.ndarray
+    quotient_cap: np.ndarray
+    openings: Openings
+    fri: fri_mod.FriProof
+    query_indices: List[int]
+    query_initials: List[List]
+    fri_query_layers: List[List[fri_mod.FriLayerProof]]
+
+
+# ---------------------------------------------------------------------------
+# main prover
+# ---------------------------------------------------------------------------
+
+
+def prove(
+    stark: Stark,
+    trace_rows: torch.Tensor,
+    ctl_values: Dict[int, List[List[int]]],
+    config: StarkConfig,
+    timing: "timing_mod.TimingTree" = None,
+) -> Proof:
+    """Prove `trace_rows` ([n, width] int64 residues) on its device."""
+    tt = timing_mod.get(timing)
+    n, w = trace_rows.shape
+    assert w == stark.width
+    n_log = n.bit_length() - 1
+    assert n == 1 << n_log
+    rate = config.rate_bits
+    N = n << rate
+    dev = trace_rows.device
+    trace_cols = trace_rows.T.contiguous()
+
+    # ---- S1: trace commit ---------------------------------------------
+    with tt.scope("trace commit"):
+        t_coeffs, t_lde, t_levels = commit_values(trace_cols, config, tt)
+        trace_cap = u64_from_tensor(t_levels[-1])
+    ch = Challenger()
+    ch.observe_element(n_log)
+    ch.observe_cap(trace_cap)
+
+    challenges = [
+        (ch.get_challenge(), ch.get_challenge()) for _ in range(config.num_challenges)
+    ]
+    # per (challenge, ctl) column indices and weights
+    ctl_weight_specs = [
+        [
+            (
+                torch.tensor([c for c, _ in ctl.flat_weights(b, gl.P)], dtype=torch.int64,
+                             device=dev),
+                _dev_vec([wt for _, wt in ctl.flat_weights(b, gl.P)], dev),
+            )
+            for ctl in stark.ctls
+        ]
+        for (b, _) in challenges
+    ]
+
+    # ---- S2: aux columns + commit -------------------------------------
+    with tt.scope("aux"):
+        aux_cols = _make_aux(stark)(
+            trace_cols, [b for b, _ in challenges], [g for _, g in challenges],
+            ctl_weight_specs,
+        )
+        a_coeffs, a_lde, a_levels = commit_values(aux_cols, config)
+        aux_cap = u64_from_tensor(a_levels[-1])
+    ch.observe_cap(aux_cap)
+    del aux_cols, trace_cols  # queries read the LDEs, not the values
+
+    ctl_totals = [
+        [cons.ctl_total(ctl_values[c_idx], b, g) for c_idx in range(len(stark.ctls))]
+        for (b, g) in challenges
+    ]
+    alphas = ch.get_n_challenges(config.num_challenges)
+
+    # ---- S3: quotient --------------------------------------------------
+    with tt.scope("quotient"):
+        alpha_pows = tensor_from_u64(
+            np.stack([gl.powers(a, 513) for a in alphas]), dev
+        )
+        q_chunks = _make_quotient(stark, n_log, config)(
+            t_lde, a_lde, alphas, alpha_pows, challenges, ctl_totals,
+            [[wt for (_, wt) in per_ch] for per_ch in ctl_weight_specs],
+        )
+        q_lde, q_levels = commit_coeffs(q_chunks, config)
+        quotient_cap = u64_from_tensor(q_levels[-1])
+    ch.observe_cap(quotient_cap)
+
+    # ---- S4: openings --------------------------------------------------
+    zeta = ch.get_extension_challenge()
+    g = gl.primitive_root_of_unity(n_log)
+    zeta_g = zeta.scalar_mul(g)
+
+    with tt.scope("openings"):
+        pulled = [
+            u64_from_tensor(_openings(coeffs, z))
+            for coeffs in (t_coeffs, a_coeffs, q_chunks)
+            for z in (zeta, zeta_g)
+        ]
+
+        def mk(r):
+            return [GLExt(int(a), int(b)) for a, b in zip(r[0], r[1])]
+
+        openings = Openings(
+            trace_zeta=mk(pulled[0]),
+            trace_zeta_g=mk(pulled[1]),
+            aux_zeta=mk(pulled[2]),
+            aux_zeta_g=mk(pulled[3]),
+            quotient_zeta=mk(pulled[4]),
+            quotient_zeta_g=mk(pulled[5]),
+        )
+    del t_coeffs, a_coeffs  # openings done; only LDEs are queried below
+    for vals, vals_g in openings.all_polys_order():
+        for v in vals:
+            ch.observe_extension(v)
+        for v in vals_g:
+            ch.observe_extension(v)
+
+    # ---- S5: FRI -------------------------------------------------------
+    fri_alpha = ch.get_extension_challenge()
+    vals_zeta = openings.trace_zeta + openings.aux_zeta + openings.quotient_zeta
+    vals_zeta_g = openings.trace_zeta_g + openings.aux_zeta_g + openings.quotient_zeta_g
+    n_polys = len(vals_zeta)
+
+    def horner(vals):
+        acc = GLExt.zero()
+        for v in reversed(vals):
+            acc = acc * fri_alpha + v
+        return acc
+
+    apow = GLExt.one()
+    alpha_pows_rows = []
+    for _ in range(n_polys):
+        alpha_pows_rows.append([apow.c0, apow.c1])
+        apow = apow * fri_alpha
+    with tt.scope("fri oracle"):
+        F = _fri_oracle(
+            [t_lde, a_lde, q_lde], alpha_pows_rows, horner(vals_zeta),
+            horner(vals_zeta_g), zeta, zeta_g, fri_alpha.exp(n_polys),
+        )
+
+    with tt.scope("fri"):
+        fri_proof, query_indices, fri_query_layers = fri_mod.prove_fri(
+            F, n_log, config, ch, timing=tt
+        )
+
+    # initial tree openings per query: rows and sibling paths gathered on
+    # the device; only ~Q * (width + 4 * height) values reach the host.
+    with tt.scope("query extraction"):
+        idx_np = np.array(query_indices, dtype=np.int64)
+        nat = torch.from_numpy(bit_rev_perm(n_log + rate)[idx_np].astype(np.int64)).to(dev)
+        idx = torch.from_numpy(idx_np).to(dev)
+        pulled = [
+            (u64_from_tensor(lde[:, nat].T),
+             [u64_from_tensor(p) for p in gather_paths_dev(levels, idx)])
+            for lde, levels in ((t_lde, t_levels), (a_lde, a_levels), (q_lde, q_levels))
+        ]
+        query_initials = [
+            [(rows[qi], [lvl[qi] for lvl in paths]) for rows, paths in pulled]
+            for qi in range(len(query_indices))
+        ]
+
+    return Proof(
+        degree_bits=n_log,
+        trace_cap=trace_cap,
+        aux_cap=aux_cap,
+        quotient_cap=quotient_cap,
+        openings=openings,
+        fri=fri_proof,
+        query_indices=query_indices,
+        query_initials=query_initials,
+        fri_query_layers=fri_query_layers,
+    )

@@ -1,0 +1,188 @@
+"""The PyTorch port stands alone: it imports no JAX, its copies of the JAX
+package's host files equal the originals by value, and its kernel wrappers
+never fall back from a device request to the plain version."""
+
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "plonky2_bn254_tpu_torch"
+
+
+def _port_modules():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_port_imports_no_jax():
+    mods = list(_port_modules())
+    assert len(mods) > 30
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib', 'plonky2_bn254_tpu.')) or k == 'plonky2_bn254_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_params_copy_equals_original():
+    from plonky2_bn254_tpu.bn254 import params as orig
+    from plonky2_bn254_tpu_torch.bn254 import params as copy
+
+    names = [n for n in dir(orig) if n.isupper()]
+    assert names
+    for n in names:
+        assert getattr(copy, n) == getattr(orig, n), n
+
+
+def test_oracle_copy_equals_original():
+    from plonky2_bn254_tpu.bn254 import oracle as orig
+    from plonky2_bn254_tpu_torch.bn254 import oracle as copy
+
+    ra, rb = np.random.default_rng(3), np.random.default_rng(3)
+    for _ in range(5):
+        pa, pb = copy.random_g1(ra), orig.random_g1(rb)
+        assert pa == pb
+        k = int(ra.integers(1, 2**62))
+        assert int(rb.integers(1, 2**62)) == k
+        assert copy.g1_mul(pa, k) == orig.g1_mul(pb, k)
+        assert copy.g1_add(pa, copy.g1_neg(pa)) is None
+        assert copy.g1_is_on_curve(pa) and copy.fq_sgn(k) == orig.fq_sgn(k)
+        assert copy.fq_inv(k) == orig.fq_inv(k) and copy.fq_sqrt(k) == orig.fq_sqrt(k)
+
+
+def _layouts(mod):
+    return {n: getattr(mod, n) for n in dir(mod) if n.endswith("_LAYOUT")}
+
+
+def _layout_value(lay):
+    return [(name, _layout_value(s) if hasattr(s, "spec") else s) for name, s in lay.spec]
+
+
+def test_layout_copy_equals_original():
+    from plonky2_bn254_tpu.starks import layout as orig
+    from plonky2_bn254_tpu_torch.starks import layout as copy
+
+    a, b = _layouts(copy), _layouts(orig)
+    assert a.keys() == b.keys() and a
+    for n in a:
+        assert _layout_value(a[n]) == _layout_value(b[n]), n
+        assert a[n].width == b[n].width
+        assert a[n].offsets == b[n].offsets
+
+
+def test_table_copy_equals_original():
+    from plonky2_bn254_tpu.starks import table as orig
+    from plonky2_bn254_tpu_torch.starks import table as copy
+
+    for cls in ("Lookup", "KeyedLookup", "CtlSpec", "Stark"):
+        fa = [(f.name, f.default) for f in dataclasses.fields(getattr(copy, cls))]
+        fb = [(f.name, f.default) for f in dataclasses.fields(getattr(orig, cls))]
+        assert fa == fb, cls
+    sa, sb = copy.g1_scalar_mul_stark(), orig.g1_scalar_mul_stark()
+    assert (sa.name, sa.width, sa.constraint_degree) == (sb.name, sb.width, sb.constraint_degree)
+    assert [dataclasses.asdict(x) for x in sa.lookups] == [dataclasses.asdict(x) for x in sb.lookups]
+    assert [dataclasses.asdict(x) for x in sa.ctls] == [dataclasses.asdict(x) for x in sb.ctls]
+    for ca, cb in zip(sa.ctls, sb.ctls):
+        assert ca.flat_weights(12345, 2**64 - 2**32 + 1) == cb.flat_weights(12345, 2**64 - 2**32 + 1)
+
+
+def test_config_copy_equals_original():
+    from plonky2_bn254_tpu.prover import config as orig
+    from plonky2_bn254_tpu_torch.prover import config as copy
+
+    assert [f.name for f in dataclasses.fields(copy.StarkConfig)] == [
+        f.name for f in dataclasses.fields(orig.StarkConfig)]
+    for name in ("DEFAULT_CONFIG", "TEST_CONFIG"):
+        assert dataclasses.asdict(getattr(copy, name)) == dataclasses.asdict(getattr(orig, name))
+    assert copy.DEFAULT_CONFIG.rate == orig.DEFAULT_CONFIG.rate
+
+
+def test_challenger_and_constants_copies_equal_original():
+    from plonky2_bn254_tpu.field import poseidon_constants as orig_c
+    from plonky2_bn254_tpu.prover.challenger import Challenger as Orig
+    from plonky2_bn254_tpu_torch.field import poseidon_constants as copy_c
+    from plonky2_bn254_tpu_torch.prover.challenger import Challenger as Copy
+
+    np.testing.assert_array_equal(copy_c.ROUND_CONSTANTS, orig_c.ROUND_CONSTANTS)
+    np.testing.assert_array_equal(copy_c.MDS, orig_c.MDS)
+    a, b = Copy(), Orig()
+    for x in range(23):
+        a.observe_element(x * 7919)
+        b.observe_element(x * 7919)
+        if x % 4 == 0:
+            assert a.get_extension_challenge().c1 == b.get_extension_challenge().c1
+    assert (a.state, a.input_buffer, a.output_buffer) == (b.state, b.input_buffer, b.output_buffer)
+
+
+def test_timing_copy_records_scopes():
+    from plonky2_bn254_tpu_torch.utils.timing import TimingTree, get
+
+    tt = TimingTree(enabled=True)
+    with tt.scope("outer"):
+        with tt.scope("inner"):
+            pass
+    assert [(d, n) for d, n, _ in tt.records] == [(1, "inner"), (0, "outer")]
+    assert tt.total("inner") >= 0.0
+    off = get(None)
+    with off.scope("x"):
+        pass
+    assert off.records == []
+
+
+def test_wrappers_refuse_other_devices():
+    """Only a CPU tensor takes the plain path; anything else launches a
+    kernel or raises."""
+    from plonky2_bn254_tpu_torch.field import ntt_cuda, poseidon_cuda
+
+    meta = torch.empty((4, 8), dtype=torch.int64, device="meta")
+    for fn in (poseidon_cuda.hash_leaves, poseidon_cuda.permute_states,
+               ntt_cuda.ntt, ntt_cuda.intt, lambda x: ntt_cuda.coset_lde(x, 1)):
+        with pytest.raises(ValueError):
+            fn(meta)
+
+
+def test_cuda_request_without_gpu_raises(monkeypatch, tmp_path):
+    """Without a card, a CUDA input cannot even be made, and the kernel
+    library refuses to build without nvcc; neither falls back."""
+    from plonky2_bn254_tpu_torch import kernels
+    from plonky2_bn254_tpu_torch.field import poseidon_cuda
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the card tests cover this path")
+    with pytest.raises((RuntimeError, AssertionError)):
+        poseidon_cuda.hash_leaves(torch.zeros((2, 8), dtype=torch.int64, device="cuda"))
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(kernels, "_nvcc", no_nvcc)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    kernels.library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            kernels.library()
+    finally:
+        kernels.library.cache_clear()
+
+
+def test_launch_counters_reset():
+    from plonky2_bn254_tpu_torch import kernels
+
+    kernels.LAUNCHES["K1"] += 3
+    kernels.reset_launches()
+    assert dict(kernels.LAUNCHES) == {k: 0 for k in kernels.KERNEL_IDS}
