@@ -1,0 +1,145 @@
+"""The least time an H100 could take for each kernel's work (`bound_ms`).
+
+bound = max(bytes / HBM rate, int32 ops / int32 peak), counted from the
+algorithm and the shapes, not from the kernels:
+  - bytes: each input word read once, each output word written once;
+  - ops: the field operations the function needs, in the cheapest form
+    known for it, each at a fixed int32 instruction cost (`OP_COST`):
+    no product by a unit twiddle, the iNTT's n^-1 folded into a twiddle
+    table, Poseidon's partial rounds in their sparse form;
+  - the int32 peak: 128 instructions per clock per SM, the issue rate of
+    four schedulers of 32 lanes, times the SM count times the card's
+    maximum SM clock.  The CUDA guide's 64 per clock per SM is the rate of
+    one instruction class; integer work runs on two pipes (the IMAD family
+    on the FMA pipe, the rest on the INT pipe), so only the issue rate
+    bounds every mix.
+
+`OP_COST` is fixed here once: the SASS instruction counts of
+`csrc/goldilocks.cuh`, which `sass_costs` recounts from a build of
+`csrc/op_probe.cu` (one operation per kernel, less the baseline's
+instructions).  Building and disassembling need nvcc and cuobjdump;
+importing this module needs neither.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import re
+import subprocess
+from collections import Counter
+
+from . import kernels
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+INT32_OPS_PER_CLK_PER_SM = 128
+
+# SASS instructions per operation on 64-bit Goldilocks words (sm_90a, nvcc 12)
+OP_COST = {
+    "mul": 29,  # 64x64 -> 128 product and reduction (gl::mul)
+    "add": 11,  # gl::add
+    "sub": 5,  # gl::sub
+    "reduce": 19,  # gl::reduce128 of a 128-bit sum
+    "small_mul": 8,  # word times a 32-bit constant into two 64-bit sums (MDS)
+}
+
+# Poseidon (width 12, rate 8): 8 full and 22 partial rounds, S-box x^7 in 4
+# products.
+POSEIDON_FULL_ROUNDS = 8
+POSEIDON_PARTIAL_ROUNDS = 22
+POSEIDON_WIDTH = 12
+POSEIDON_RATE = 8
+
+
+def permutation_ops() -> int:
+    """Ops of one permutation.  A full round: 12 constant adds, 12 S-boxes
+    and the dense MDS layer (144 small-constant products, 12 reductions).
+    The partial rounds in the sparse form of the Poseidon paper (App. B) that
+    plonky2's fast partial rounds use: once, 12 constant adds and an 11 x 11
+    product by full-width constants (121 products, 110 adds); then a round is
+    one S-box, one constant add, and 23 products and 22 adds (the first row
+    and column of a sparse matrix), against 144 small products, 12
+    reductions and 12 adds in the dense form."""
+    c, t = OP_COST, POSEIDON_WIDTH
+    full = t * c["add"] + t * 4 * c["mul"] + t * t * c["small_mul"] + t * c["reduce"]
+    first = t * c["add"] + (t - 1) ** 2 * c["mul"] + (t - 1) * (t - 2) * c["add"]
+    partial = (4 + 2 * t - 1) * c["mul"] + (1 + 2 * (t - 1)) * c["add"]
+    return POSEIDON_FULL_ROUNDS * full + first + POSEIDON_PARTIAL_ROUNDS * partial
+
+
+def hash_leaves_work(n: int, w: int) -> tuple:
+    """(ops, bytes) of K1 on [n, w] leaves: ceil(w / 8) permutations a row."""
+    perms = n * max(1, -(-w // POSEIDON_RATE))
+    return perms * permutation_ops(), 8 * n * w + 32 * n
+
+
+def permute_states_work(n: int) -> tuple:
+    """(ops, bytes) of K2 on [n, 12] states."""
+    return n * permutation_ops(), 2 * 8 * POSEIDON_WIDTH * n
+
+
+def _dft_ops(n_log: int, products: int) -> int:
+    """Ops of one 2^n_log-point transform: (n/2) log2 n butterflies, each an
+    add and a sub, and `products` twiddle products."""
+    butterflies = (1 << n_log) // 2 * n_log
+    return butterflies * (OP_COST["add"] + OP_COST["sub"]) + products * OP_COST["mul"]
+
+
+def ntt_work(w: int, n: int, inverse: bool) -> tuple:
+    """(ops, bytes) of K3 on [w, n].  A row: (n/2) log2 n butterflies, of
+    which n - 1 have the unit twiddle and no product.  The inverse folds n^-1
+    into the four-step twiddles w_n^(k1 i2) of an n1 x n2 split (n1, n2 the
+    powers of two nearest sqrt n), which costs the n1 + n2 - 1 of them that
+    are 1 a product each."""
+    k = n.bit_length() - 1
+    products = (n // 2) * k - (n - 1)
+    if inverse and k > 0:
+        products += (1 << (k - k // 2)) + (1 << (k // 2)) - 1
+    return w * _dft_ops(k, products), 16 * w * n
+
+
+def coset_lde_work(w: int, n: int, rate_bits: int) -> tuple:
+    """(ops, bytes) of K4 on [w, n] coefficients -> [w, n << rate_bits]
+    values.  A row: n - 1 products by shift^i (shift^0 = 1); rate_bits DIF
+    stages on zero-extended blocks, (a, 0) -> (a, a w^i), a product for each
+    of the n - 1 non-unit twiddles of each block; then 2^rate_bits full
+    n-point transforms.  The products sum to 2^rate_bits (n/2) log2 n."""
+    k = n.bit_length() - 1
+    blocks = 1 << rate_bits
+    products = blocks * (n // 2) * k
+    ops = blocks * _dft_ops(k, 0) + products * OP_COST["mul"]
+    return w * ops, 8 * w * n + 8 * w * (n << rate_bits)
+
+
+def bound_ms(ops: int, nbytes: int, sms: int, clock_mhz: float) -> tuple:
+    """(bound in ms, "operations" or "bytes")."""
+    t_ops = ops / (INT32_OPS_PER_CLK_PER_SM * sms * clock_mhz * 1e6)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+
+
+def sass_costs(out_dir: pathlib.Path) -> tuple:
+    """(cost of each operation, opcodes of gl::mul): each probe kernel's
+    instructions beyond the baseline's, plus the baseline's two LOP3s."""
+    out_dir = out_dir.resolve()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = kernels._nvcc()
+    cubin = out_dir / "op_probe.cubin"
+    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    subprocess.run([nvcc, *flags, "-cubin", "-o", str(cubin), str(kernels.CSRC / "op_probe.cu")],
+                   check=True, capture_output=True, text=True, cwd=str(kernels.CSRC))
+    cuobjdump = pathlib.Path(nvcc).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(cubin)], check=True,
+                          capture_output=True, text=True).stdout
+    opcodes, current = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\w+)", line)
+        if head:
+            current = opcodes.setdefault(head.group(1), Counter())
+            continue
+        ins = re.search(r"/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if current is not None and ins and ins.group(2) not in ("NOP", "BRA", "EXIT"):
+            current[ins.group(2)] += 1
+    base = sum(opcodes["probe_xor"].values())
+    costs = {name[len("probe_"):]: sum(c.values()) - base + 2
+             for name, c in opcodes.items() if name != "probe_xor"}
+    return costs, dict(opcodes["probe_mul"])

@@ -58,7 +58,7 @@ def hash_leaves(leaves: torch.Tensor) -> torch.Tensor:
                                kernels.stream_of(leaves)),
             "hash_leaves",
         )
-        kernels.LAUNCHES["K1"] += 1
+        kernels.count_launch("K1", (n, w))
     return out
 
 
@@ -78,5 +78,5 @@ def permute_states(states: torch.Tensor) -> torch.Tensor:
                                   kernels.stream_of(states)),
             "permute_states",
         )
-        kernels.LAUNCHES["K2"] += 1
+        kernels.count_launch("K2", (n,))
     return out

@@ -5,8 +5,9 @@ library with a plain C interface (`_build/`, listed in `.gitignore`) and
 loaded with ctypes; nothing here imports a PyTorch extension.  Importing
 this module builds nothing: `library()` does, on the first launch.
 
-Every wrapper adds one to its entry of `LAUNCHES` where it launches its
-kernel, and nowhere else, so a run can show which kernels it went through.
+Every wrapper calls `count_launch` where it launches its kernel, and
+nowhere else: one more in `LAUNCHES`, and the call's shape in `CALLS`, so a
+run can show which kernels it went through and at which shapes.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ NVCC_FLAGS = (
 # K1 Poseidon leaf sponge, K2 raw permutation, K3 NTT/iNTT, K4 coset LDE.
 KERNEL_IDS = ("K1", "K2", "K3", "K4")
 LAUNCHES: Counter = Counter({k: 0 for k in KERNEL_IDS})
+# kernel id -> Counter of the keys its launches were made with (see the wrappers)
+CALLS: dict = {k: Counter() for k in KERNEL_IDS}
 
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -43,9 +46,9 @@ _SIGNATURES = {
     "p2_poseidon_init": (_VP, _VP),
     "p2_hash_leaves": (_VP, _VP, _I64, _I64, _VP),
     "p2_permute_states": (_VP, _VP, _I64, _VP),
-    "p2_ntt_tile_log": (),
-    "p2_ntt_local": (_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT, _U64, _VP),
-    "p2_ntt_stage": (_VP, _VP, _I64, _INT, _INT, _INT, _U64, _VP),
+    "p2_ntt_rows": (_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT, _INT, _U64, _VP),
+    "p2_ntt_columns": (_VP, _VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT, _INT, _VP),
+    "p2_ntt_rows_t": (_VP, _VP, _VP, _I64, _INT, _INT, _INT, _VP),
 }
 
 
@@ -62,6 +65,13 @@ BUILD = BuildInfo()
 def reset_launches() -> None:
     for k in KERNEL_IDS:
         LAUNCHES[k] = 0
+        CALLS[k].clear()
+
+
+def count_launch(kernel_id: str, key: tuple) -> None:
+    """One launch of `kernel_id`; `key` holds the shape of the call."""
+    LAUNCHES[kernel_id] += 1
+    CALLS[kernel_id][key] += 1
 
 
 def _nvcc() -> str:

@@ -182,9 +182,11 @@ def add_range_checks(rows: torch.Tensor) -> torch.Tensor:
     return rows
 
 
-def generate_trace(inputs, min_rows: int = 1 << LIMB_BITS, device=None) -> torch.Tensor:
+def generate_trace(inputs, min_rows: int = 1 << LIMB_BITS,
+                   device="cuda") -> torch.Tensor:
     """inputs: list of (s, (x, y), (ox, oy), timestamp) python ints ->
-    [num_rows, 781] int64 trace on `device`."""
+    [num_rows, 781] int64 trace on `device`: the card unless the caller
+    asks for the CPU (`device="cpu"`); without a card the default raises."""
     from .limbs import h_bits_le, h_int_to_limbs
 
     n = len(inputs)

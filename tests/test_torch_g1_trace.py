@@ -45,7 +45,7 @@ def _inputs(n_ops, seed=5):
 
 def test_trace_bit_identical_to_jax():
     inputs = _inputs(4)
-    got = g1_scalar_mul.generate_trace(inputs, min_rows=2048)
+    got = g1_scalar_mul.generate_trace(inputs, min_rows=2048, device="cpu")
     assert got.shape == (2048, 781) and got.dtype == torch.int64
     want = np.asarray(jg1.generate_trace(inputs, min_rows=2048))
     np.testing.assert_array_equal(u64_from_tensor(got), want)
@@ -54,6 +54,17 @@ def test_trace_bit_identical_to_jax():
     for op, (s, x, offset, _) in enumerate(inputs):
         last = got[op * 512 + 511, sx.start : sx.stop].tolist()
         assert h_limbs_to_int(last) == oracle.g1_add(oracle.g1_mul(x, s), offset)[0]
+
+
+def test_trace_defaults_to_the_card():
+    """Without `device`, generate_trace builds on CUDA: with no card it
+    raises, as torch does, rather than building on the CPU."""
+    inputs = _inputs(1)
+    if torch.cuda.is_available():
+        assert g1_scalar_mul.generate_trace(inputs).device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        g1_scalar_mul.generate_trace(inputs)
 
 
 def test_ctl_values_and_oracle_match_jax():

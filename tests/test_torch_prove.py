@@ -179,7 +179,7 @@ def test_g1_proof_equals_jax_field_by_field():
     rng = np.random.default_rng(5)
     inputs = [(int(rng.integers(1, 1 << 63)) << 180 | int(rng.integers(0, 1 << 63)),
                oracle.random_g1(rng), oracle.random_g1(rng), t) for t in range(4)]
-    trace = g1_scalar_mul.generate_trace(inputs, min_rows=2048)
+    trace = g1_scalar_mul.generate_trace(inputs, min_rows=2048, device="cpu")
     ctl = g1_scalar_mul.generate_ctl_values(inputs)
     tproof = prove_mod.prove(g1_scalar_mul_stark(), trace, ctl, TEST_CONFIG)
     jtrace = jnp.asarray(trace.numpy().view(np.uint64))
