@@ -9,34 +9,43 @@ Phases (any failure exits non-zero before the result line):
      (bounds.sass_costs): they must equal the fixed costs the bounds use;
   3. the demo STARK proved on the card must equal its proof on the CPU
      (plain versions) bit for bit;
-  4. the main path: 128 G1 scalar multiplications (seed 2024, as bench.py)
-     -> generate_trace (2^16 x 781) -> prove at DEFAULT_CONFIG -> verify,
-     with every kernel's launch count above zero, and a proof with one
-     flipped opening rejected; the wrappers record the shape of every
-     launch (kernels.CALLS);
+  4. the three paths, each with the launch counts set to 0 just before it
+     and read just after, 128 ops from numpy.random.default_rng(2024):
+       g1      128 G1 scalar multiplications s x + offset (as bench.py)
+               -> generate_trace (2^16 x 781),
+       fq_exp  128 exponentiations x^s -> generate_trace (2^16 x 427),
+       g2      128 G2 scalar multiplications -> generate_trace (2^16 x 1295),
+     -> prove at DEFAULT_CONFIG -> verify, with every kernel's launch count
+     above zero on each path, and a proof with one flipped opening rejected;
+     the wrappers record the shape of every launch (kernels.CALLS);
   5. each kernel against its plain PyTorch version on the card, at every
-     shape the main path launched it with and at a few odd sizes, with
+     shape any path launched it with and at a few odd sizes, with
      torch.equal (exact integer arithmetic: the tolerance is zero); the
-     kernel timed at each main-path shape beside its bound (bounds.py), the
+     kernel timed at each path shape beside its bound (bounds.py), the
      plain version at the largest;
-  6. stage times of a steady-state proof from the synchronising timer, and
-     the wall times of two more.
+  6. per path, the stage times and wall of one proof under the
+     synchronising timer and its peak device memory; for g1 also the walls
+     of two unsynchronised proofs.
 
-Prints the kernel table as one JSON line (each kernel's largest main-path
-shape, and every main-path shape with its launches under "shapes"), then the
-card line, then {"ok": true, "device": {...}} as the last line.
+Prints each phase's seconds, a JSON line per path ("path": first proof,
+verify, synchronised wall, peak memory, launches), the kernel table as one
+JSON line (each kernel's largest shape, and every shape with its launches on
+each path under "shapes"), then the card line, then
+{"ok": true, "device": {...}} as the last line.
 """
 
 import json
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
 
 SEED = 2024
 N_OPS = 128
+PATHS = ("g1", "fq_exp", "g2")
 
 KERNELS = {
     "K1": ("hash_leaves", "plonky2_bn254_tpu_torch/csrc/poseidon.cu",
@@ -132,18 +141,21 @@ ODD_KEYS = {
 }
 
 
-def compare_kernels(device, calls: dict, sms: int, clock_mhz: float) -> dict:
-    """Each kernel vs its plain version on the card at every key of `calls`
-    (the main path's launches; timed, beside the bound of bounds.py) and at
+def compare_kernels(device, calls_by_path: dict, sms: int, clock_mhz: float) -> dict:
+    """Each kernel vs its plain version on the card at every key any path
+    launched it with (timed, beside the bound of bounds.py) and at
     ODD_KEYS.  Raises on the first disagreement."""
     from plonky2_bn254_tpu_torch import bounds
 
     rng = np.random.default_rng(SEED)
     results = {}
     for kid, odd in ODD_KEYS.items():
-        timed = sorted(calls[kid], key=lambda k: kernel_call(kid, k)[2], reverse=True)
+        calls = Counter()
+        for per_path in calls_by_path.values():
+            calls.update(per_path[kid])
+        timed = sorted(calls, key=lambda k: kernel_call(kid, k)[2], reverse=True)
         err, rows = 0, []
-        for i, key in enumerate(timed + [k for k in odd if k not in calls[kid]]):
+        for i, key in enumerate(timed + [k for k in odd if k not in calls]):
             kern, plain, work, shape = kernel_call(kid, key)
             x = rand_residues(rng, shape, device)
             got = kern(x)
@@ -158,15 +170,16 @@ def compare_kernels(device, calls: dict, sms: int, clock_mhz: float) -> dict:
                 ms = cuda_ms(lambda: kern(x), reps=20)
                 plain_ms = cuda_ms(lambda: plain(x), reps=1) if i == 0 else None
                 bound, bound_by = bounds.bound_ms(*work, sms, clock_mhz)
-                rows.append({"key": list(key), "launches": calls[kid][key], "ms": ms,
+                per_path = {p: calls_by_path[p][kid].get(key, 0) for p in calls_by_path}
+                rows.append({"key": list(key), "launches": per_path, "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                              "share": bound / ms})
-                log(f"  {kid} {key} x{calls[kid][key]}: kernel {ms:.3f} ms, bound {bound:.4f} ms "
+                log(f"  {kid} {key} x{per_path}: kernel {ms:.3f} ms, bound {bound:.4f} ms "
                     f"({bound_by}), share {bound / ms:.3f}"
                     + (f", plain {plain_ms:.3f} ms" if plain_ms is not None else ""))
             del x
-        n_odd = len([k for k in odd if k not in calls[kid]])
-        log(f"  {kid}: equal to plain at {len(timed)} main-path and {n_odd} odd shapes, "
+        n_odd = len([k for k in odd if k not in calls])
+        log(f"  {kid}: equal to plain at {len(timed)} path and {n_odd} odd shapes, "
             f"max_abs_err {err}")
         results[kid] = {"max_abs_err": err, "timed": rows}
         torch.cuda.empty_cache()
@@ -190,24 +203,127 @@ def demo_matches_cpu(device) -> None:
         raise AssertionError("demo proof on the card differs from the CPU proof")
 
 
+class Path:
+    """One of the three machines, driven through its public entry points:
+    generate_trace, prove, verify."""
+
+    def __init__(self, name: str, device):
+        from plonky2_bn254_tpu_torch.bn254 import oracle
+        from plonky2_bn254_tpu_torch.starks import fq_exp, g1_scalar_mul, g2_scalar_mul, table
+
+        self.name, self.device = name, device
+        self.module, self.stark = {
+            "g1": (g1_scalar_mul, table.g1_scalar_mul_stark()),
+            "fq_exp": (fq_exp, table.fq_exp_stark()),
+            "g2": (g2_scalar_mul, table.g2_scalar_mul_stark()),
+        }[name]
+        rng = np.random.default_rng(SEED)
+
+        def scalar():
+            return int(rng.integers(1, 1 << 63)) << 192 | int(rng.integers(0, 1 << 63))
+
+        if name == "fq_exp":
+            self.inputs = [(scalar(), oracle.random_fq(rng), t) for t in range(N_OPS)]
+        else:
+            point = oracle.random_g1 if name == "g1" else oracle.random_g2
+            self.inputs = [(scalar(), point(rng), point(rng), t) for t in range(N_OPS)]
+        self.ctl_values = self.module.generate_ctl_values(self.inputs)
+
+    def prove(self, tt=None):
+        from plonky2_bn254_tpu_torch.prover import prove as prove_mod
+        from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG
+        from plonky2_bn254_tpu_torch.utils.timing import TimingTree
+
+        tt = tt or TimingTree(enabled=False)
+        with tt.scope("trace gen"):
+            trace = self.module.generate_trace(self.inputs, device=self.device)
+        assert trace.shape == (1 << 16, self.stark.width), trace.shape
+        return prove_mod.prove(self.stark, trace, self.ctl_values, DEFAULT_CONFIG, timing=tt)
+
+    def verify(self, proof):
+        from plonky2_bn254_tpu_torch.prover import verify as verify_mod
+        from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG
+
+        verify_mod.verify(self.stark, proof, self.ctl_values, DEFAULT_CONFIG)
+
+
+def gb(nbytes: int) -> float:
+    return nbytes / 1e9
+
+
+def first_proof(path: Path) -> dict:
+    """The path's first proof with the launch counts set to 0 just before
+    and read just after; then verify it, and reject it with one opening
+    flipped."""
+    from plonky2_bn254_tpu_torch import kernels
+    from plonky2_bn254_tpu_torch.field.extension import GLExt
+    from plonky2_bn254_tpu_torch.prover import verify as verify_mod
+
+    log(f"# path {path.name}: {N_OPS} ops, 2^16 x {path.stark.width} trace, DEFAULT_CONFIG")
+    torch.cuda.reset_peak_memory_stats(path.device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    proof = path.prove()
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    calls = {k: dict(kernels.CALLS[k]) for k in kernels.KERNEL_IDS}
+    peak = gb(torch.cuda.max_memory_allocated(path.device))
+    log(f"  first proof {prove_s:.2f} s; launches {launches}; peak device memory {peak:.2f} GB")
+    missing = [k for k in kernels.KERNEL_IDS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"path {path.name} never launched {missing}")
+
+    t0 = time.perf_counter()
+    path.verify(proof)
+    verify_s = time.perf_counter() - t0
+    log(f"  verified in {verify_s:.2f} s")
+    proof.openings.trace_zeta[0] = proof.openings.trace_zeta[0] + GLExt(1)
+    try:
+        path.verify(proof)
+    except verify_mod.VerificationError as e:
+        log(f"  tampered proof rejected: {e}")
+    else:
+        raise AssertionError(f"path {path.name}: a proof with a flipped opening was accepted")
+    return {"first_proof_s": prove_s, "verify_s": verify_s, "first_peak_gb": peak,
+            "launches": launches, "calls": calls}
+
+
+def synced_proof(path: Path) -> dict:
+    """Stage times and wall of one proof under the synchronising timer."""
+    from plonky2_bn254_tpu_torch.utils.timing import TimingTree
+
+    torch.cuda.reset_peak_memory_stats(path.device)
+    tt = TimingTree(enabled=True)
+    t0 = time.perf_counter()
+    path.prove(tt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = gb(torch.cuda.max_memory_allocated(path.device))
+    log(f"# path {path.name}: stage times of a synchronised proof:")
+    for depth, stage, secs in tt.records:
+        log(f"  {'  ' * depth}{secs:8.3f}s  {stage}")
+    log(f"  synchronised proof wall {wall:.3f} s ({N_OPS / wall:.2f} ops/s); peak device memory "
+        f"{peak:.2f} GB")
+    return {"synced_wall_s": wall, "synced_peak_gb": peak,
+            "stages_s": {stage: secs for depth, stage, secs in tt.records if depth == 0}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     from plonky2_bn254_tpu_torch import kernels
-    from plonky2_bn254_tpu_torch.bn254 import oracle
-    from plonky2_bn254_tpu_torch.field.extension import GLExt
-    from plonky2_bn254_tpu_torch.prover import prove as prove_mod
-    from plonky2_bn254_tpu_torch.prover import verify as verify_mod
-    from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG
-    from plonky2_bn254_tpu_torch.starks import g1_scalar_mul
-    from plonky2_bn254_tpu_torch.starks.table import g1_scalar_mul_stark
-    from plonky2_bn254_tpu_torch.utils.timing import TimingTree
 
     card = card_line()
     log(f"# card: {card}")
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    def phase_done(name: str, t0: float) -> None:
+        log(f"# phase {name}: {time.perf_counter() - t0:.1f} s "
+            f"(total {time.perf_counter() - t_start:.1f} s)")
 
     # ---- build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -232,81 +348,50 @@ def main() -> int:
     log("# demo STARK: card proof vs CPU proof")
     demo_matches_cpu(device)
     log("  equal, and verified")
+    phase_done("build and demo", t_start)
 
-    # ---- main path -------------------------------------------------------
-    rng = np.random.default_rng(SEED)
-    inputs = [
-        (
-            int(rng.integers(1, 1 << 63)) << 192 | int(rng.integers(0, 1 << 63)),
-            oracle.random_g1(rng),
-            oracle.random_g1(rng),
-            t,
-        )
-        for t in range(N_OPS)
-    ]
-    stark = g1_scalar_mul_stark()
-    ctl_values = g1_scalar_mul.generate_ctl_values(inputs)
+    # ---- the three paths ---------------------------------------------------
+    paths, runs = {}, {}
+    for name in PATHS:
+        t0 = time.perf_counter()
+        paths[name] = Path(name, device)
+        runs[name] = first_proof(paths[name])
+        phase_done(f"{name} first proof", t0)
 
-    def one_proof(tt=None):
-        tt = tt or TimingTree(enabled=False)
-        with tt.scope("trace gen"):
-            trace = g1_scalar_mul.generate_trace(inputs, device=device)
-        assert trace.shape == (1 << 16, g1_scalar_mul.LAYOUT.width), trace.shape
-        return prove_mod.prove(stark, trace, ctl_values, DEFAULT_CONFIG, timing=tt)
-
-    log(f"# main path: {N_OPS} G1 ops, DEFAULT_CONFIG")
-    kernels.reset_launches()
+    log("# kernels vs plain versions at every path shape (torch.equal, tolerance 0)")
     t0 = time.perf_counter()
-    proof = one_proof()
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    log(f"  first proof {time.perf_counter() - t0:.2f} s; launches {launches}")
-    calls = {k: dict(kernels.CALLS[k]) for k in kernels.KERNEL_IDS}
-    missing = [k for k in kernels.KERNEL_IDS if launches[k] <= 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
+    kres = compare_kernels(device, {p: runs[p]["calls"] for p in PATHS}, sms, clock_mhz)
+    phase_done("kernels", t0)
 
+    # ---- synchronised proofs -------------------------------------------------
+    for name in PATHS:
+        t0 = time.perf_counter()
+        runs[name].update(synced_proof(paths[name]))
+        phase_done(f"{name} synchronised proof", t0)
     t0 = time.perf_counter()
-    verify_mod.verify(stark, proof, ctl_values, DEFAULT_CONFIG)
-    log(f"  verified in {time.perf_counter() - t0:.2f} s")
-
-    proof.openings.trace_zeta[0] = proof.openings.trace_zeta[0] + GLExt(1)
-    try:
-        verify_mod.verify(stark, proof, ctl_values, DEFAULT_CONFIG)
-    except verify_mod.VerificationError as e:
-        log(f"  tampered proof rejected: {e}")
-    else:
-        raise AssertionError("a proof with a flipped opening was accepted")
-    del proof
-
-    log("# kernels vs plain versions at every main-path shape (torch.equal, tolerance 0)")
-    kres = compare_kernels(device, calls, sms, clock_mhz)
-
-    # ---- steady state ------------------------------------------------------
-    tt = TimingTree(enabled=True)
-    one_proof(tt)
-    log("# stage times of a steady-state proof (synchronised scopes):")
-    for depth, stage, secs in tt.records:
-        log(f"  {'  ' * depth}{secs:8.3f}s  {stage}")
     walls = []
     for _ in range(2):  # host-bound: two readings show the host's spread
-        t0 = time.perf_counter()
-        one_proof()
+        t1 = time.perf_counter()
+        paths["g1"].prove()
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    wall = min(walls)
-    log(f"  steady-state proof walls {walls[0]:.3f} s, {walls[1]:.3f} s; best "
-        f"{1.0 / wall:.4f} proofs/s, {N_OPS / wall:.2f} G1 ops/s; peak device memory "
-        f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+        walls.append(time.perf_counter() - t1)
+    runs["g1"]["walls_s"] = walls
+    log(f"  g1 unsynchronised proof walls {walls[0]:.3f} s, {walls[1]:.3f} s; best "
+        f"{1.0 / min(walls):.4f} proofs/s, {N_OPS / min(walls):.2f} G1 ops/s")
+    phase_done("g1 walls", t0)
 
     name = torch.cuda.get_device_name(0)
+    for p in PATHS:
+        print(json.dumps({"path": p, **{k: v for k, v in runs[p].items() if k != "calls"}}))
 
     table = {"kernels": []}
     for kid in kernels.KERNEL_IDS:
         main = kres[kid]["timed"][0]
+        by_path = {p: runs[p]["launches"][kid] for p in PATHS}
         table["kernels"].append({
             "name": f"{kid} {KERNELS[kid][0]}", "route": "cuda", "source": KERNELS[kid][1],
-            "replaces": KERNELS[kid][2], "launches": launches[kid],
+            "replaces": KERNELS[kid][2], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": kres[kid]["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
@@ -314,6 +399,7 @@ def main() -> int:
             "shapes": [{k: r[k] for k in ("key", "launches", "ms", "bound_ms", "share")}
                        for r in kres[kid]["timed"]],
         })
+    log(f"# total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(table))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

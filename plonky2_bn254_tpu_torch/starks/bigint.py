@@ -145,6 +145,16 @@ def mulmod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return mod_p(mul_full(a, b))
 
 
+def addmod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod p on [..., 16] residues in [0, p)."""
+    return reduce_small(a + b)
+
+
+def submod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a - b) mod p on [..., 16] residues in [0, p)."""
+    return reduce_small(a - b + const_row(MOD_LIMBS_INT, a.device))
+
+
 def exact_div_p(input_coeffs: torch.Tensor):
     """Exact signed division by p of a 31-coefficient polynomial value.
 
@@ -215,3 +225,12 @@ def batch_inv_mod_p(a: torch.Tensor) -> torch.Tensor:
     suf = torch.cat([_prefix_mulmod(mat.flip(1)).flip(1)[:, 1:], ones], dim=1)
     out = mulmod(mulmod(pre, suf), totals_inv[:, None]).reshape(-1, N_LIMBS)[:m]
     return torch.where(is_zero, 0, out).reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# Host helpers for tests
+# ---------------------------------------------------------------------------
+
+
+def h_mod_p(x: int) -> int:
+    return x % BN254_P

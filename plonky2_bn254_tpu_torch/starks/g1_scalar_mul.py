@@ -13,15 +13,14 @@ rows together.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from . import bigint, g1_add, jacobian, round_flags
+from . import bigint, g1_add, jacobian, modular, round_flags, rows
 from .air import eval_eq
 from .layout import G1_ADD_AUX_LAYOUT, Layout, ROUND_FLAGS_LAYOUT
 from .limbs import LIMB_BITS, N_BITS, N_LIMBS
 
-G1_PERIOD = 2 * N_BITS  # 512
+G1_PERIOD = rows.PERIOD  # 512
 G1_LEN = g1_add.G1_LEN  # 32
 
 POINT = Layout([("x", N_LIMBS), ("y", N_LIMBS)])
@@ -104,56 +103,10 @@ def _aux_cols(aux: g1_add.G1AddAux):
     ]
 
 
-def _assemble(d_ax, d_ay, p_ax, p_ay, pp_ax, pp_ay, add_cx, add_cy, add_aux,
-              dbl_cx, dbl_cy, dbl_aux, s_bits, timestamps):
-    """Row assembly from chain points and add witnesses."""
-    n = s_bits.shape[0]
-    dev = s_bits.device
-    k_idx = torch.arange(N_BITS, device=dev)
-    rot_idx = (k_idx[:, None] + k_idx[None, :]) % N_BITS
-    bits_rot = s_bits[:, rot_idx].permute(1, 0, 2)  # [256, n, 256]
-
-    flags = torch.from_numpy(round_flags.flag_tables(G1_PERIOD).view(np.int64)).to(dev)
-    add_flags = flags[0::2][:, None, :].expand(N_BITS, n, 5)
-    dbl_flags = flags[1::2][:, None, :].expand(N_BITS, n, 5)
-
-    ts = timestamps[None, :, None].expand(N_BITS, n, 1)
-    ones = torch.ones((N_BITS, n, 1), dtype=torch.int64, device=dev)
-    zeros = torch.zeros_like(ones)
-    dbl_not_last = ones.clone()
-    dbl_not_last[N_BITS - 1] = 0
-
-    d_lo_ax, d_lo_ay = d_ax[:N_BITS], d_ay[:N_BITS]
-    add_rows = torch.cat(
-        [d_lo_ax, d_lo_ay, p_ax, p_ay]  # double, sum
-        + [pp_ax, pp_ay, d_lo_ax, d_lo_ay, add_cx, add_cy]  # a, b, c
-        + _aux_cols(add_aux)
-        + [bits_rot, add_flags, ts, ones, zeros, ones, zeros, zeros],
-        dim=-1,
-    )
-    dbl_rows = torch.cat(
-        [d_ax[1:], d_ay[1:], p_ax, p_ay]  # double = d_{k+1}, sum = p_k
-        + [d_lo_ax, d_lo_ay, d_lo_ax, d_lo_ay, dbl_cx, dbl_cy]
-        + _aux_cols(dbl_aux)
-        + [bits_rot, dbl_flags, ts, zeros, dbl_not_last, ones, zeros, zeros],
-        dim=-1,
-    )
-    per_op = torch.stack([add_rows, dbl_rows], dim=1)  # [256, 2, n, 781]
-    return per_op.permute(2, 0, 1, 3).reshape(n * G1_PERIOD, LAYOUT.width)
-
-
-def _split_aux(aux: g1_add.G1AddAux, i: int) -> g1_add.G1AddAux:
-    """Half i of a G1AddAux computed over stacked [2, ...] inputs."""
-    def pick(t):
-        if isinstance(t, tuple):
-            return type(t)(*(pick(x) for x in t))
-        return t[i]
-
-    return pick(aux)
-
-
-def generate_trace_core(x_limbs, y_limbs, ox_limbs, oy_limbs, s_bits, timestamps):
-    """[n,16] x/y/offset limbs, [n,256] bits, [n] ts -> [n*512, 781] int64."""
+def generate_trace_core(x_limbs, y_limbs, ox_limbs, oy_limbs, s_bits, timestamps,
+                        min_rows: int = 0):
+    """[n,16] x/y/offset limbs, [n,256] bits, [n] ts -> [num_rows, 781]
+    int64 rows (range-check columns zero)."""
     d_ax, d_ay, p_ax, p_ay, pp_ax, pp_ay = _chains(x_limbs, y_limbs, ox_limbs, oy_limbs,
                                                    s_bits)
     d_lo_ax, d_lo_ay = d_ax[:N_BITS], d_ay[:N_BITS]
@@ -162,24 +115,23 @@ def generate_trace_core(x_limbs, y_limbs, ox_limbs, oy_limbs, s_bits, timestamps
         torch.stack([pp_ax, d_lo_ax]), torch.stack([pp_ay, d_lo_ay]),
         torch.stack([d_lo_ax, d_lo_ax]), torch.stack([d_lo_ay, d_lo_ay]),
     )
-    return _assemble(
-        d_ax, d_ay, p_ax, p_ay, pp_ax, pp_ay,
-        cx[0], cy[0], _split_aux(aux, 0), cx[1], cy[1], _split_aux(aux, 1),
-        s_bits, timestamps,
+    even_tail, odd_tail = rows.tails(s_bits, timestamps)
+    add_rows = (
+        [d_lo_ax, d_lo_ay, p_ax, p_ay]  # double, sum
+        + [pp_ax, pp_ay, d_lo_ax, d_lo_ay, cx[0], cy[0]]  # a, b, c
+        + _aux_cols(modular.index_tree(aux, 0)) + even_tail
     )
+    dbl_rows = (
+        [d_ax[1:], d_ay[1:], p_ax, p_ay]  # double = d_{k+1}, sum = p_k
+        + [d_lo_ax, d_lo_ay, d_lo_ax, d_lo_ay, cx[1], cy[1]]
+        + _aux_cols(modular.index_tree(aux, 1)) + odd_tail
+    )
+    return rows.assemble(add_rows, dbl_rows, min_rows)
 
 
-def add_range_checks(rows: torch.Tensor) -> torch.Tensor:
+def add_range_checks(trace: torch.Tensor) -> torch.Tensor:
     """Fill the range-check counter and frequency columns (in place)."""
-    from .histogram import bincount16
-
-    num_rows = rows.shape[0]
-    range_max = 1 << LIMB_BITS
-    rows[:, RANGE_COUNTER_COL] = torch.arange(num_rows, device=rows.device).clamp(
-        max=range_max - 1)
-    vals = rows[:, RANGE_CHECK_COLS.start : RANGE_CHECK_COLS.stop]
-    rows[:, FREQ_COL] = bincount16(vals, num_rows)
-    return rows
+    return rows.add_range_checks(trace, RANGE_CHECK_COLS, RANGE_COUNTER_COL, FREQ_COL)
 
 
 def generate_trace(inputs, min_rows: int = 1 << LIMB_BITS,
@@ -187,28 +139,13 @@ def generate_trace(inputs, min_rows: int = 1 << LIMB_BITS,
     """inputs: list of (s, (x, y), (ox, oy), timestamp) python ints ->
     [num_rows, 781] int64 trace on `device`: the card unless the caller
     asks for the CPU (`device="cpu"`); without a card the default raises."""
-    from .limbs import h_bits_le, h_int_to_limbs
-
-    n = len(inputs)
-    num_rows = max(min_rows, n * G1_PERIOD)
-    num_rows = 1 << (num_rows - 1).bit_length()
-    # one bundled host->device transfer
-    bundle = np.zeros((n, 4 * N_LIMBS + N_BITS + 1), dtype=np.int64)
-    for i, (s, p, o, t) in enumerate(inputs):
-        bundle[i, :N_LIMBS] = h_int_to_limbs(int(p[0]))
-        bundle[i, N_LIMBS : 2 * N_LIMBS] = h_int_to_limbs(int(p[1]))
-        bundle[i, 2 * N_LIMBS : 3 * N_LIMBS] = h_int_to_limbs(int(o[0]))
-        bundle[i, 3 * N_LIMBS : 4 * N_LIMBS] = h_int_to_limbs(int(o[1]))
-        bundle[i, 4 * N_LIMBS : 4 * N_LIMBS + N_BITS] = h_bits_le(int(s))
-        bundle[i, -1] = int(t)
-    dev = torch.from_numpy(bundle).to(device)
-    rows = generate_trace_core(
+    dev = rows.bundle([(p[0], p[1], o[0], o[1]) for _, p, o, _ in inputs], 4,
+                      [(s, t) for s, _, _, t in inputs], device)
+    trace = generate_trace_core(
         dev[:, :N_LIMBS], dev[:, N_LIMBS : 2 * N_LIMBS],
         dev[:, 2 * N_LIMBS : 3 * N_LIMBS], dev[:, 3 * N_LIMBS : 4 * N_LIMBS],
-        dev[:, 4 * N_LIMBS : 4 * N_LIMBS + N_BITS], dev[:, -1],
+        dev[:, 4 * N_LIMBS : 4 * N_LIMBS + N_BITS], dev[:, -1], min_rows,
     )
-    trace = torch.zeros((num_rows, LAYOUT.width), dtype=torch.int64, device=dev.device)
-    trace[: rows.shape[0]] = rows
     return add_range_checks(trace)
 
 

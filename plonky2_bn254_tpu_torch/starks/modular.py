@@ -43,6 +43,15 @@ class IsModulusZeroAux(NamedTuple):
     modulus_zero_aux: ModulusZeroAux
 
 
+def index_tree(tree, i):
+    """Entry i along the leading axes of every tensor in a (nested) witness
+    tuple, e.g. one half of a witness computed over stacked [2, ...] inputs."""
+    if isinstance(tree, tuple):
+        items = [index_tree(t, i) for t in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree[i]
+
+
 def generate_modulus_zero(input_coeffs: torch.Tensor) -> ModulusZeroAux:
     """Witness that the value of `input_coeffs[..., 31]` is divisible by p."""
     is_quot_positive, quot_abs = bigint.exact_div_p(input_coeffs)

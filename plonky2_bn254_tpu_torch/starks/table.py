@@ -99,6 +99,18 @@ class Stark:
     constraint_degree: int = 3
 
 
+def fq_exp_stark() -> Stark:
+    from . import fq_exp
+
+    return Stark(
+        name="fq_exp",
+        width=fq_exp.LAYOUT.width,
+        eval_fn=fq_exp.eval_fq_exp,
+        lookups=fq_exp.lookups(),
+        ctls=fq_exp.ctls(),
+    )
+
+
 def g1_scalar_mul_stark() -> Stark:
     from . import g1_scalar_mul as g1
 
@@ -108,4 +120,16 @@ def g1_scalar_mul_stark() -> Stark:
         eval_fn=g1.eval_g1_scalar_mul,
         lookups=g1.lookups(),
         ctls=g1.ctls(),
+    )
+
+
+def g2_scalar_mul_stark() -> Stark:
+    from . import g2_scalar_mul as g2
+
+    return Stark(
+        name="g2_scalar_mul",
+        width=g2.LAYOUT.width,
+        eval_fn=g2.eval_g2_scalar_mul,
+        lookups=g2.lookups(),
+        ctls=g2.ctls(),
     )

@@ -123,3 +123,24 @@ def test_demo_proof_on_card_equals_cpu(card):
     on_cpu = proof_to_fields(prove_mod.prove(demo_stark(), trace, ctl, TEST_CONFIG))
     as_json = lambda f: json.dumps(f, default=lambda v: v.tolist())
     assert as_json(on_card) == as_json(on_cpu)
+
+
+@pytest.mark.parametrize("machine", ["fq_exp", "g2_scalar_mul"])
+def test_trace_on_card_equals_cpu(card, machine):
+    """The FqExp and G2 traces built on the card equal the same traces built
+    on the CPU (plain torch, exact integer arithmetic)."""
+    from plonky2_bn254_tpu_torch.bn254 import oracle
+    from plonky2_bn254_tpu_torch.starks import fq_exp, g2_scalar_mul
+
+    rng = np.random.default_rng(12)
+    if machine == "fq_exp":
+        mod = fq_exp
+        inputs = [(int(rng.integers(1, 1 << 63)) << 190 | t, oracle.random_fq(rng), t)
+                  for t in range(3)]
+    else:
+        mod = g2_scalar_mul
+        inputs = [(int(rng.integers(1, 1 << 63)) << 190 | t, oracle.random_g2(rng),
+                   oracle.random_g2(rng), t) for t in range(2)]
+    on_card = mod.generate_trace(inputs, min_rows=2048)
+    assert on_card.device.type == "cuda"
+    assert torch.equal(on_card.cpu(), mod.generate_trace(inputs, min_rows=2048, device="cpu"))

@@ -14,24 +14,18 @@ import torch
 import jax.numpy as jnp
 
 from plonky2_bn254_tpu.bn254 import oracle as joracle
-from plonky2_bn254_tpu.field import goldilocks as jgl
-from plonky2_bn254_tpu.prover import constraints as jcons
-from plonky2_bn254_tpu.starks import air as jair
 from plonky2_bn254_tpu.starks import bigint as jbig
 from plonky2_bn254_tpu.starks import g1_scalar_mul as jg1
 from plonky2_bn254_tpu.starks.table import g1_scalar_mul_stark as jstark
 from plonky2_bn254_tpu_torch.bn254 import oracle
 from plonky2_bn254_tpu_torch.bn254.params import P as BN_P
-from plonky2_bn254_tpu_torch.interop import tensor_from_u64, u64_from_tensor
-from plonky2_bn254_tpu_torch.prover import constraints as tcons
-from plonky2_bn254_tpu_torch.starks import air as tair
+from plonky2_bn254_tpu_torch.interop import u64_from_tensor
 from plonky2_bn254_tpu_torch.starks import bigint, g1_scalar_mul
 from plonky2_bn254_tpu_torch.starks.limbs import from_ints, h_int_to_limbs, h_limbs_to_int
 from plonky2_bn254_tpu_torch.starks.table import g1_scalar_mul_stark
+from torch_constraint_case import jax_case, port_accs
 
 torch.set_num_threads(2)
-
-GL_P = jgl.P
 
 
 def _inputs(n_ops, seed=5):
@@ -113,40 +107,7 @@ def test_limb_arithmetic_matches_jax():
 def constraint_case():
     """Random row values, challenges and selectors for the G1 constraint
     system, and the JAX GL ring's accumulators (stacked path) on them."""
-    rng = np.random.default_rng(3)
-    C, W = 8, 781
-    sj = jstark()
-    aw = tcons.aux_width(g1_scalar_mul_stark(), 2)
-    case = {
-        "vals": {k: rng.integers(0, GL_P, (n, C), dtype=np.uint64)
-                 for k, n in [("loc", W), ("nxt", W), ("aloc", aw), ("anxt", aw)]},
-        "sel": rng.integers(0, GL_P, (3, C), dtype=np.uint64),
-        "alphas": [int(x) for x in rng.integers(0, GL_P, 2, dtype=np.uint64)],
-        "challenges": [tuple(int(x) for x in rng.integers(0, GL_P, 2, dtype=np.uint64))
-                       for _ in range(2)],
-        "totals": [[int(x) for x in rng.integers(0, GL_P, 2, dtype=np.uint64)] for _ in range(2)],
-    }
-    case["alpha_pows"] = np.array([[pow(a, j, GL_P) for j in range(513)] for a in case["alphas"]],
-                                  dtype=np.uint64)
-    case["static"] = tuple(tuple(c for c, _ in ctl.flat_weights(1, GL_P)) for ctl in sj.ctls)
-
-    ring = jair.GLRing((C,))
-    lj = {k: [jair.GL(jnp.asarray(v[j])) for j in range(v.shape[0])]
-          for k, v in case["vals"].items()}
-    cj = jair.ConstraintConsumer(ring, [ring.const(jnp.uint64(a)) for a in case["alphas"]],
-                                 *(jair.GL(jnp.asarray(s)) for s in case["sel"]),
-                                 alpha_pows=jnp.asarray(case["alpha_pows"]))
-    wj = [[jnp.asarray(np.array([w for _, w in ctl.flat_weights(b, GL_P)], dtype=np.uint64))
-           for ctl in sj.ctls] for b, _ in case["challenges"]]
-    jcons.eval_all_constraints(
-        cj, ring, sj, lj["loc"], lj["nxt"], lj["aloc"], lj["anxt"],
-        [(jnp.uint64(b), jnp.uint64(g)) for b, g in case["challenges"]],
-        [[jnp.uint64(x) for x in r] for r in case["totals"]],
-        ctl_weight_specs=(case["static"], wj),
-    )
-    case["count"] = cj.count
-    case["want"] = np.stack([np.asarray(a.v) for a in cj.accs])
-    return case
+    return jax_case(jstark(), g1_scalar_mul_stark(), seed=3)
 
 
 @pytest.mark.parametrize("stacked", [True, False])
@@ -154,23 +115,6 @@ def test_constraint_evaluation_matches_jax(constraint_case, stacked):
     """All 1579 G1 constraints (AIR, LogUp, CTL) alpha-combined over random
     row values: the port's GL ring, on its stacked and its generic path,
     against the JAX GL ring."""
-    case = constraint_case
-    st = g1_scalar_mul_stark()
-    C = case["sel"].shape[1]
-    tring = tair.GLRing((C,), "cpu")
-    lt = {k: [tair.GL(tensor_from_u64(v[j])) for j in range(v.shape[0])]
-          for k, v in case["vals"].items()}
-    ct = tair.ConstraintConsumer(
-        tring, [tring.const(a) for a in case["alphas"]],
-        *(tair.GL(tensor_from_u64(s)) for s in case["sel"]),
-        alpha_pows=tensor_from_u64(case["alpha_pows"]) if stacked else None,
-    )
-    specs = None
-    if stacked:
-        wt = [[tensor_from_u64(np.array([w for _, w in ctl.flat_weights(b, GL_P)], dtype=np.uint64))
-               for ctl in st.ctls] for b, _ in case["challenges"]]
-        specs = (case["static"], wt)
-    tcons.eval_all_constraints(ct, tring, st, lt["loc"], lt["nxt"], lt["aloc"], lt["anxt"],
-                               case["challenges"], case["totals"], ctl_weight_specs=specs)
-    assert ct.count == case["count"]
-    np.testing.assert_array_equal(np.stack([u64_from_tensor(a.v) for a in ct.accs]), case["want"])
+    count, accs = port_accs(constraint_case, g1_scalar_mul_stark(), stacked)
+    assert count == constraint_case["count"]
+    np.testing.assert_array_equal(accs, constraint_case["want"])

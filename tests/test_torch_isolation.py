@@ -25,6 +25,8 @@ def _port_modules():
 def test_port_imports_no_jax():
     mods = list(_port_modules())
     assert len(mods) > 30
+    for m in ("fq_mul", "fq_exp", "fq2_alg", "g2_add", "g2_scalar_mul", "rows"):
+        assert f"plonky2_bn254_tpu_torch.starks.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -63,6 +65,20 @@ def test_oracle_copy_equals_original():
         assert copy.g1_add(pa, copy.g1_neg(pa)) is None
         assert copy.g1_is_on_curve(pa) and copy.fq_sgn(k) == orig.fq_sgn(k)
         assert copy.fq_inv(k) == orig.fq_inv(k) and copy.fq_sqrt(k) == orig.fq_sqrt(k)
+    for _ in range(2):
+        qa, qb = copy.random_g2(ra), orig.random_g2(rb)
+        assert qa == qb and copy.g2_is_on_curve(qa)
+        k = int(ra.integers(1, 2**62))
+        assert int(rb.integers(1, 2**62)) == k
+        assert copy.g2_mul(qa, k) == orig.g2_mul(qb, k)
+        assert copy.g2_add(qa, copy.g2_mul(qa, k)) == orig.g2_add(qb, orig.g2_mul(qb, k))
+        assert copy.g2_add(qa, copy.g2_neg(qa)) is None
+        a, b = qa[0], qa[1]
+        for name in ("fq2_add", "fq2_sub", "fq2_mul"):
+            assert getattr(copy, name)(a, b) == getattr(orig, name)(a, b), name
+        for name in ("fq2_neg", "fq2_inv", "fq2_sgn", "fq2_is_square", "fq2_sqrt"):
+            assert getattr(copy, name)(a) == getattr(orig, name)(a), name
+        assert copy.fq2_mul_scalar(a, k) == orig.fq2_mul_scalar(a, k)
 
 
 def _layouts(mod):
@@ -93,12 +109,13 @@ def test_table_copy_equals_original():
         fa = [(f.name, f.default) for f in dataclasses.fields(getattr(copy, cls))]
         fb = [(f.name, f.default) for f in dataclasses.fields(getattr(orig, cls))]
         assert fa == fb, cls
-    sa, sb = copy.g1_scalar_mul_stark(), orig.g1_scalar_mul_stark()
-    assert (sa.name, sa.width, sa.constraint_degree) == (sb.name, sb.width, sb.constraint_degree)
-    assert [dataclasses.asdict(x) for x in sa.lookups] == [dataclasses.asdict(x) for x in sb.lookups]
-    assert [dataclasses.asdict(x) for x in sa.ctls] == [dataclasses.asdict(x) for x in sb.ctls]
-    for ca, cb in zip(sa.ctls, sb.ctls):
-        assert ca.flat_weights(12345, 2**64 - 2**32 + 1) == cb.flat_weights(12345, 2**64 - 2**32 + 1)
+    for factory in ("fq_exp_stark", "g1_scalar_mul_stark", "g2_scalar_mul_stark"):
+        sa, sb = getattr(copy, factory)(), getattr(orig, factory)()
+        assert (sa.name, sa.width, sa.constraint_degree) == (sb.name, sb.width, sb.constraint_degree)
+        assert [dataclasses.asdict(x) for x in sa.lookups] == [dataclasses.asdict(x) for x in sb.lookups]
+        assert [dataclasses.asdict(x) for x in sa.ctls] == [dataclasses.asdict(x) for x in sb.ctls]
+        for ca, cb in zip(sa.ctls, sb.ctls):
+            assert ca.flat_weights(12345, 2**64 - 2**32 + 1) == cb.flat_weights(12345, 2**64 - 2**32 + 1)
 
 
 def test_config_copy_equals_original():
