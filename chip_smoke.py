@@ -4,13 +4,14 @@
 
 Phases (any failure exits non-zero before the result line):
   1. the card: name, power limit and maximum SM clock from nvidia-smi;
-  2. build the CUDA kernels from plonky2_bn254_tpu_torch/csrc (nvcc, sm_90a),
-     and count the SASS instructions of each Goldilocks operation
-     (bounds.sass_costs): they must equal the fixed costs the bounds use;
+  2. build the CUDA kernels from plonky2_bn254_tpu_torch/csrc (nvcc, sm_90a,
+     one nvcc a source, all started together), and count the SASS
+     instructions of each Goldilocks operation (bounds.sass_costs): they must
+     equal the fixed costs the bounds use;
   3. the demo STARK proved on the card must equal its proof on the CPU
      (plain versions) bit for bit;
-  4. the three paths, each with the launch counts set to 0 just before it
-     and read just after, 128 ops from numpy.random.default_rng(2024):
+  4. the three machine paths, each with the launch counts set to 0 just
+     before it and read just after, 128 ops from numpy.random.default_rng(2024):
        g1      128 G1 scalar multiplications s x + offset (as bench.py)
                -> generate_trace (2^16 x 781),
        fq_exp  128 exponentiations x^s -> generate_trace (2^16 x 427),
@@ -18,14 +19,26 @@ Phases (any failure exits non-zero before the result line):
      -> prove at DEFAULT_CONFIG -> verify, with every kernel's launch count
      above zero on each path, and a proof with one flipped opening rejected;
      the wrappers record the shape of every launch (kernels.CALLS);
-  5. each kernel against its plain PyTorch version on the card, at every
+  5. the compose path, the circuit API's production product (as
+     scripts/prove_compose_default.py and scripts/bench_outer.py define it):
+     two fq_exp ops from numpy.random.default_rng(123) recorded on a
+     CircuitBuilder, the first op's output limbs public, the hook and the
+     outer proof at DEFAULT_CONFIG, table_bits 16:
+       build          the in-circuit recursive FqExp verifier,
+       witness        the inner FqExp batch proved on the card, self-verified
+                      and injected (outputs checked against pow(x, s, P)),
+       compile_outer  the 2^20-row universal-gate layout and its verifier key,
+       outer proof    with the launch counts set to 0 just before it and read
+                      just after: every kernel must have launched,
+     then verify_all, a corrupted public value and a flipped opening both
+     rejected;
+  6. each kernel against its plain PyTorch version on the card, at every
      shape any path launched it with and at a few odd sizes, with
      torch.equal (exact integer arithmetic: the tolerance is zero); the
      kernel timed at each path shape beside its bound (bounds.py), the
      plain version at the largest;
-  6. per path, the stage times and wall of one proof under the
-     synchronising timer and its peak device memory; for g1 also the walls
-     of two unsynchronised proofs.
+  7. per path, the stage times and wall of one proof under the
+     synchronising timer and its peak device memory.
 
 Prints each phase's seconds, a JSON line per path ("path": first proof,
 verify, synchronised wall, peak memory, launches), the kernel table as one
@@ -46,6 +59,9 @@ import torch
 SEED = 2024
 N_OPS = 128
 PATHS = ("g1", "fq_exp", "g2")
+COMPOSE_SEED = 123
+COMPOSE_OPS = 2
+TABLE_BITS = 16
 
 KERNELS = {
     "K1": ("hash_leaves", "plonky2_bn254_tpu_torch/csrc/poseidon.cu",
@@ -289,7 +305,145 @@ def first_proof(path: Path) -> dict:
             "launches": launches, "calls": calls}
 
 
-def synced_proof(path: Path) -> dict:
+
+class Compose:
+    """The compose path: fq_exp ops on a CircuitBuilder, driven through the
+    circuit API a user calls (build, generate_witness, outer_data,
+    prove_outer, verify_all)."""
+
+    name = "compose"
+
+    def __init__(self, device):
+        from plonky2_bn254_tpu_torch.bn254 import oracle, params
+        from plonky2_bn254_tpu_torch.circuit import builder_ops
+        from plonky2_bn254_tpu_torch.circuit.builder import CircuitBuilder, Witness
+        from plonky2_bn254_tpu_torch.circuit.fq import FqTarget
+        from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG
+
+        self.device = device
+        rng = np.random.default_rng(COMPOSE_SEED)
+        t0 = time.perf_counter()
+        builder = CircuitBuilder()
+        self.hook = builder_ops.get_bn254_hook(builder)
+        self.hook.stark_config = DEFAULT_CONFIG
+        self.pw = Witness()
+        self.outs = []
+        for _ in range(COMPOSE_OPS):
+            x_t = FqTarget.new_unchecked(builder)
+            s_v = int(rng.integers(1, 1 << 62)) << 150 | int(rng.integers(0, 1 << 62))
+            x_v = oracle.random_fq(rng)
+            out_t = builder_ops.fq_exp(builder, s_v, x_t)
+            x_t.set_witness(self.pw, x_v)
+            self.outs.append((out_t, pow(x_v, s_v, params.P)))
+        for t in self.outs[0][0].value.limbs:
+            builder.register_public_input(t)
+        self.circuit = builder.build()
+        self.build_s = time.perf_counter() - t0
+        log(f"# path compose: build {self.build_s:.2f} s, "
+            f"{self.circuit.builder.num_targets:,} targets, "
+            f"{len(self.circuit.builder.poseidon_ops):,} Poseidon ops")
+
+    def witness(self) -> dict:
+        from plonky2_bn254_tpu_torch import kernels
+        from plonky2_bn254_tpu_torch.utils.timing import TimingTree
+
+        self.hook.timing = TimingTree(enabled=True)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        self.values = self.circuit.generate_witness(self.pw, self.device)
+        torch.cuda.synchronize()
+        witness_s = time.perf_counter() - t0
+        calls = {k: dict(kernels.CALLS[k]) for k in kernels.KERNEL_IDS}
+        stages = {stage: secs for _, stage, secs in self.hook.timing.records}
+        for out_t, want in self.outs:
+            if out_t.get_witness(self.values) != want:
+                raise AssertionError("compose: an fq_exp output differs from pow(x, s, P)")
+        log(f"  witness {witness_s:.2f} s (inner FqExp proof on the card + self-verify + "
+            f"fixpoint); " + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items()))
+        log(f"  outputs equal pow(x, s, P) for all {COMPOSE_OPS} ops")
+        return {"witness_s": witness_s, "witness_stages_s": stages, "witness_calls": calls}
+
+    def compile(self) -> dict:
+        from plonky2_bn254_tpu_torch import kernels
+
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        self.data = self.circuit.outer_data(TABLE_BITS, self.device)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        lay = self.data.lay
+        log(f"  compile_outer {compile_s:.2f} s: outer_rows_log2 {self.data.n_log}, width "
+            f"{lay.width} (R {lay.R}), {self.data.n_gate_rows:,} gate rows, "
+            f"{self.data.n_pos:,} Poseidon blocks, {self.data.n_wires:,} wires")
+        return {"compile_outer_s": compile_s, "outer_rows_log2": self.data.n_log,
+                "outer_width": lay.width,
+                "compile_calls": {k: dict(kernels.CALLS[k]) for k in kernels.KERNEL_IDS}}
+
+    def prove(self, tt=None):
+        from plonky2_bn254_tpu_torch.circuit import outer
+        from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG
+
+        proof, publics = outer.prove_outer(self.data, self.values, DEFAULT_CONFIG, timing=tt)
+        self.publics = publics
+        return proof
+
+    def verify(self, proof, publics):
+        from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG
+
+        self.circuit.verify_all(proof, publics, DEFAULT_CONFIG, TABLE_BITS, self.device)
+
+
+def compose_first_proof(path: Compose) -> dict:
+    """build -> witness -> compile_outer -> the first outer proof (launch
+    counts set to 0 just before it and read just after) -> verify_all, and
+    a corrupted public value and a flipped opening rejected."""
+    from plonky2_bn254_tpu_torch import interop, kernels
+    from plonky2_bn254_tpu_torch.field.extension import GLExt
+    from plonky2_bn254_tpu_torch.prover import verify as verify_mod
+
+    res = {"build_s": path.build_s, "targets": path.circuit.builder.num_targets}
+    res.update(path.witness())
+    res.update(path.compile())
+    torch.cuda.reset_peak_memory_stats(path.device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    proof = path.prove()
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    calls = {k: dict(kernels.CALLS[k]) for k in kernels.KERNEL_IDS}
+    peak = gb(torch.cuda.max_memory_allocated(path.device))
+    log(f"  first outer proof {prove_s:.2f} s; launches {launches}; peak device memory "
+        f"{peak:.2f} GB")
+    missing = [k for k in kernels.KERNEL_IDS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"path compose never launched {missing} on the outer proof")
+
+    statement = sum(v << (32 * i) for i, v in enumerate(path.publics))
+    if statement != path.outs[0][1]:
+        raise AssertionError("compose: the public statement differs from pow(x, s, P)")
+    t0 = time.perf_counter()
+    path.verify(proof, path.publics)
+    verify_s = time.perf_counter() - t0
+    log(f"  verify_all accepted in {verify_s:.2f} s; public statement = x^s mod p")
+    bad = list(path.publics)
+    bad[0] = (bad[0] + 1) % ((1 << 64) - (1 << 32) + 1)
+    flipped = interop.proof_from_fields(interop.proof_to_fields(proof))
+    flipped.openings.trace_zeta[0] = flipped.openings.trace_zeta[0] + GLExt(1)
+    for what, tampered, publics in (("corrupted public value", proof, bad),
+                                    ("flipped opening", flipped, path.publics)):
+        try:
+            path.verify(tampered, publics)
+        except verify_mod.VerificationError as e:
+            log(f"  {what} rejected: {e}")
+        else:
+            raise AssertionError(f"compose: a proof with a {what} was accepted")
+    res.update({"first_proof_s": prove_s, "verify_s": verify_s, "first_peak_gb": peak,
+                "launches": launches, "calls": calls})
+    return res
+
+
+def synced_proof(path) -> dict:
     """Stage times and wall of one proof under the synchronising timer."""
     from plonky2_bn254_tpu_torch.utils.timing import TimingTree
 
@@ -303,8 +457,8 @@ def synced_proof(path: Path) -> dict:
     log(f"# path {path.name}: stage times of a synchronised proof:")
     for depth, stage, secs in tt.records:
         log(f"  {'  ' * depth}{secs:8.3f}s  {stage}")
-    log(f"  synchronised proof wall {wall:.3f} s ({N_OPS / wall:.2f} ops/s); peak device memory "
-        f"{peak:.2f} GB")
+    rate = f" ({N_OPS / wall:.2f} ops/s)" if path.name in PATHS else ""
+    log(f"  synchronised proof wall {wall:.3f} s{rate}; peak device memory {peak:.2f} GB")
     return {"synced_wall_s": wall, "synced_peak_gb": peak,
             "stages_s": {stage: secs for depth, stage, secs in tt.records if depth == 0}}
 
@@ -358,36 +512,35 @@ def main() -> int:
         runs[name] = first_proof(paths[name])
         phase_done(f"{name} first proof", t0)
 
+    t0 = time.perf_counter()
+    paths["compose"] = Compose(device)
+    runs["compose"] = compose_first_proof(paths["compose"])
+    phase_done("compose build, witness, compile_outer, first outer proof, verify_all", t0)
+    main_paths = PATHS + ("compose",)
+
     log("# kernels vs plain versions at every path shape (torch.equal, tolerance 0)")
     t0 = time.perf_counter()
-    kres = compare_kernels(device, {p: runs[p]["calls"] for p in PATHS}, sms, clock_mhz)
+    calls_by_path = {p: runs[p]["calls"] for p in main_paths}
+    calls_by_path["compose witness"] = runs["compose"]["witness_calls"]
+    calls_by_path["compose compile_outer"] = runs["compose"]["compile_calls"]
+    kres = compare_kernels(device, calls_by_path, sms, clock_mhz)
     phase_done("kernels", t0)
 
     # ---- synchronised proofs -------------------------------------------------
-    for name in PATHS:
+    for name in main_paths:
         t0 = time.perf_counter()
         runs[name].update(synced_proof(paths[name]))
         phase_done(f"{name} synchronised proof", t0)
-    t0 = time.perf_counter()
-    walls = []
-    for _ in range(2):  # host-bound: two readings show the host's spread
-        t1 = time.perf_counter()
-        paths["g1"].prove()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t1)
-    runs["g1"]["walls_s"] = walls
-    log(f"  g1 unsynchronised proof walls {walls[0]:.3f} s, {walls[1]:.3f} s; best "
-        f"{1.0 / min(walls):.4f} proofs/s, {N_OPS / min(walls):.2f} G1 ops/s")
-    phase_done("g1 walls", t0)
 
     name = torch.cuda.get_device_name(0)
-    for p in PATHS:
-        print(json.dumps({"path": p, **{k: v for k, v in runs[p].items() if k != "calls"}}))
+    hidden = ("calls", "witness_calls", "compile_calls")
+    for p in main_paths:
+        print(json.dumps({"path": p, **{k: v for k, v in runs[p].items() if k not in hidden}}))
 
     table = {"kernels": []}
     for kid in kernels.KERNEL_IDS:
         main = kres[kid]["timed"][0]
-        by_path = {p: runs[p]["launches"][kid] for p in PATHS}
+        by_path = {p: runs[p]["launches"][kid] for p in main_paths}
         table["kernels"].append({
             "name": f"{kid} {KERNELS[kid][0]}", "route": "cuda", "source": KERNELS[kid][1],
             "replaces": KERNELS[kid][2], "launches": sum(by_path.values()),

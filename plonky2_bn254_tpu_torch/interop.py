@@ -2,9 +2,12 @@
 
 Residues live in int64 tensors with the u64 bit pattern, so conversion is a
 reinterpreting view in both directions.  `proof_to_fields` flattens a
-`prover.prove.Proof` into numpy arrays and python ints under the field names
-of the JAX package's `Proof`, so the two packages' proofs can be compared
-and handed to either verifier.  This module imports no JAX.
+`prover.prove.Proof` (or the JAX package's, which has the same fields) into
+numpy arrays and python ints, and `proof_from_fields` rebuilds this
+package's `Proof` from them, so the two packages' proofs can be compared and
+handed to either verifier.  `outer_tables_to_numpy` / `outer_tables_from_numpy`
+carry the outer circuit's constant columns and verifier key between numpy
+(the JAX package's `OuterData`) and tensors.  This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -63,3 +66,47 @@ def proof_to_fields(proof) -> dict:
             for q in proof.fri_query_layers
         ],
     }
+
+
+def proof_from_fields(fields: dict):
+    """This package's `Proof` from `proof_to_fields` output (of either
+    package's proof)."""
+    from .field.extension import GLExt
+    from .prover import fri, prove
+
+    def ext(vals):
+        return [GLExt(c0, c1) for c0, c1 in vals]
+
+    return prove.Proof(
+        degree_bits=fields["degree_bits"],
+        trace_cap=_u64(fields["trace_cap"]),
+        aux_cap=_u64(fields["aux_cap"]),
+        quotient_cap=_u64(fields["quotient_cap"]),
+        openings=prove.Openings(**{k: ext(v) for k, v in fields["openings"].items()}),
+        fri=fri.FriProof(
+            layer_caps=[_u64(c) for c in fields["fri"]["layer_caps"]],
+            final_coeffs=ext(fields["fri"]["final_coeffs"]),
+            pow_nonce=fields["fri"]["pow_nonce"],
+        ),
+        query_indices=list(fields["query_indices"]),
+        query_initials=[
+            [(_u64(row), [_u64(p) for p in path]) for row, path in q]
+            for q in fields["query_initials"]
+        ],
+        fri_query_layers=[
+            [fri.FriLayerProof(group_values=_u64(lp["group_values"]),
+                               path=[_u64(p) for p in lp["path"]]) for lp in q]
+            for q in fields["fri_query_layers"]
+        ],
+    )
+
+
+def outer_tables_to_numpy(const_cols: torch.Tensor, vk_coeffs: torch.Tensor):
+    """The outer circuit's constant columns and verifier key ([n_const, n]
+    each) as numpy uint64, the JAX package's `OuterData` layout."""
+    return u64_from_tensor(const_cols), u64_from_tensor(vk_coeffs)
+
+
+def outer_tables_from_numpy(const_cols: np.ndarray, vk_coeffs: np.ndarray, device=None):
+    """numpy uint64 constant columns and verifier key -> int64 tensors."""
+    return tensor_from_u64(const_cols, device), tensor_from_u64(vk_coeffs, device)

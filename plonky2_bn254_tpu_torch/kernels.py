@@ -1,9 +1,10 @@
 """Build, load and count the hand-written CUDA kernels under `csrc/`.
 
-The kernels are compiled at first use with `nvcc` for sm_90a into a shared
-library with a plain C interface (`_build/`, listed in `.gitignore`) and
-loaded with ctypes; nothing here imports a PyTorch extension.  Importing
-this module builds nothing: `library()` does, on the first launch.
+The kernels are compiled at first use with `nvcc` for sm_90a, one `nvcc`
+process a source, all started together, and linked into a shared library
+with a plain C interface (`_build/`, listed in `.gitignore`) loaded with
+ctypes; nothing here imports a PyTorch extension.  Importing this module
+builds nothing: `library()` does, on the first launch.
 
 Every wrapper calls `count_launch` where it launches its kernel, and
 nowhere else: one more in `LAUNCHES`, and the call's shape in `CALLS`, so a
@@ -31,6 +32,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+_COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared")
 
 # K1 Poseidon leaf sponge, K2 raw permutation, K3 NTT/iNTT, K4 coset LDE.
 KERNEL_IDS = ("K1", "K2", "K3", "K4")
@@ -98,12 +100,28 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libp2kernels_{_digest()}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        tag = f"{_digest()}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src}.{tag}.o" for src in SOURCES]
+        procs = [
+            subprocess.Popen([nvcc, *_COMPILE_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                             cwd=str(CSRC))
+            for src, obj in zip(SOURCES, objs)
+        ]
+        outs = [(src, proc.communicate()[0], proc.returncode) for src, proc in zip(SOURCES, procs)]
+        BUILD.log = "".join(out for _, out, _ in outs)
+        failed = [f"{src} ({rc})" for src, _, rc in outs if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{BUILD.log}")
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [str(CSRC / s) for s in SOURCES]
-        res = subprocess.run(cmd, capture_output=True, text=True, cwd=str(CSRC))
-        BUILD.log = res.stdout + res.stderr
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True, cwd=str(CSRC))
+        BUILD.log += res.stdout + res.stderr
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD.log}")
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{BUILD.log}")
         os.replace(tmp, so)
     BUILD.path = str(so)
     lib = ctypes.CDLL(str(so))

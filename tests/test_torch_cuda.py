@@ -144,3 +144,71 @@ def test_trace_on_card_equals_cpu(card, machine):
     on_card = mod.generate_trace(inputs, min_rows=2048)
     assert on_card.device.type == "cuda"
     assert torch.equal(on_card.cpu(), mod.generate_trace(inputs, min_rows=2048, device="cpu"))
+
+
+def test_compose_three_kinds_on_card(card):
+    """The three-kinds flow of tests/test_compose_three_kinds.py through the
+    port on the card: 10 fq_exp, 10 G1 and 10 G2 ops on one builder, three
+    inner batch proofs at a small config injected at witness time, ONE outer
+    proof that `verify_all` accepts, and per op kind a corrupted opening of
+    the injected proof that makes the outer proof reject."""
+    from plonky2_bn254_tpu_torch.bn254 import oracle, params
+    from plonky2_bn254_tpu_torch.circuit import builder_ops, outer
+    from plonky2_bn254_tpu_torch.circuit.builder import CircuitBuilder, Witness
+    from plonky2_bn254_tpu_torch.circuit.curves import G1Target, G2Target
+    from plonky2_bn254_tpu_torch.circuit.fq import FqTarget
+    from plonky2_bn254_tpu_torch.prover.config import TEST_CONFIG, StarkConfig
+    from plonky2_bn254_tpu_torch.prover.verify import VerificationError
+
+    rng = np.random.default_rng(301)
+    b = CircuitBuilder()
+    hook = builder_ops.get_bn254_hook(b)
+    hook.stark_config = StarkConfig(num_challenges=2, rate_bits=1, cap_height=1,
+                                    proof_of_work_bits=8, num_query_rounds=4, arity_bits=2,
+                                    final_poly_degree_bits=3)
+    pw = Witness()
+    recs = {"fq_exp": [], "g1_scalar_mul": [], "g2_scalar_mul": []}
+
+    def scalar():
+        return int(rng.integers(1, 1 << 62)) << 180 | int(rng.integers(0, 1 << 62))
+
+    for _ in range(10):
+        s_v, x_v = scalar(), oracle.random_fq(rng)
+        x_t = FqTarget.new_unchecked(b)
+        out = builder_ops.fq_exp(b, s_v, x_t)
+        x_t.set_witness(pw, x_v)
+        recs["fq_exp"].append((out, pow(x_v, s_v, params.P)))
+    for kind, target, point, mul, add in (
+        ("g1_scalar_mul", G1Target, oracle.random_g1, oracle.g1_mul, oracle.g1_add),
+        ("g2_scalar_mul", G2Target, oracle.random_g2, oracle.g2_mul, oracle.g2_add),
+    ):
+        op = getattr(builder_ops, kind)
+        for _ in range(10):
+            s_v, x_v, off_v = scalar(), point(rng), point(rng)
+            x_t, off_t = target.new_unchecked(b), target.new_unchecked(b)
+            out = op(b, s_v, x_t, off_t)
+            x_t.set_witness(pw, x_v)
+            off_t.set_witness(pw, off_v)
+            recs[kind].append((out, add(mul(x_v, s_v), off_v)))
+    for t in recs["fq_exp"][0][0].value.limbs:
+        b.register_public_input(t)
+    circuit = b.build()
+
+    values = circuit.generate_witness(pw, card)
+    assert set(hook.proof) == set(recs)
+    for rows in recs.values():
+        for out, want in rows:
+            assert out.get_witness(values) == want
+    data = circuit.outer_data(device=card)
+    kernels.reset_launches()
+    proof, publics = outer.prove_outer(data, values, TEST_CONFIG)
+    assert all(kernels.LAUNCHES[k] > 0 for k in kernels.KERNEL_IDS)
+    circuit.verify_all(proof, publics, TEST_CONFIG, device=card)
+    assert sum(v << (32 * i) for i, v in enumerate(publics)) == recs["fq_exp"][0][1]
+    for kind in recs:
+        bad = dict(values)
+        idx = hook.proof_targets[kind].trace_zeta[0].c0.index
+        bad[idx] = (bad[idx] + 1) % gl.P
+        p_bad, pub_bad = outer.prove_outer(data, bad, TEST_CONFIG)
+        with pytest.raises(VerificationError):
+            outer.verify_outer(data, p_bad, pub_bad, TEST_CONFIG)

@@ -27,6 +27,10 @@ def test_port_imports_no_jax():
     assert len(mods) > 30
     for m in ("fq_mul", "fq_exp", "fq2_alg", "g2_add", "g2_scalar_mul", "rows"):
         assert f"plonky2_bn254_tpu_torch.starks.{m}" in mods, m
+    for m in ("builder", "biguint", "fq", "fq2", "curves", "to_u16", "ext_target",
+              "poseidon_gadget", "stark_verifier", "builder_ops", "outer", "msm"):
+        assert f"plonky2_bn254_tpu_torch.circuit.{m}" in mods, m
+    assert "plonky2_bn254_tpu_torch.circuit" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -203,3 +207,32 @@ def test_launch_counters_reset():
     kernels.LAUNCHES["K1"] += 3
     kernels.reset_launches()
     assert dict(kernels.LAUNCHES) == {k: 0 for k in kernels.KERNEL_IDS}
+
+
+def test_circuit_constants_equal_original():
+    """The circuit layer's copied constants, by value."""
+    import inspect
+
+    from plonky2_bn254_tpu.circuit import biguint as jbiguint
+    from plonky2_bn254_tpu.circuit import builder_ops as jops
+    from plonky2_bn254_tpu.circuit import fq as jfq
+    from plonky2_bn254_tpu.circuit import outer as jouter
+    from plonky2_bn254_tpu.starks import fq_exp as jfq_exp
+    from plonky2_bn254_tpu.starks import g1_scalar_mul as jg1
+    from plonky2_bn254_tpu.starks import g2_scalar_mul as jg2
+    from plonky2_bn254_tpu_torch.circuit import biguint, builder_ops, fq, outer
+
+    assert builder_ops.HOOK_KEY == jops.HOOK_KEY == "bn254"
+    assert builder_ops.PERIOD == jfq_exp.FQ_PERIOD == jg1.G1_PERIOD == jg2.G2_PERIOD == 512
+    for mod in (jfq_exp, jg1, jg2):
+        assert inspect.signature(mod.generate_trace).parameters["min_rows"].default == (
+            builder_ops.MIN_ROWS)
+    assert (biguint.LIMB_BITS, biguint.LIMB_MASK) == (jbiguint.LIMB_BITS, jbiguint.LIMB_MASK)
+    assert fq.NUM_MODULUS_LIMBS == jfq.NUM_MODULUS_LIMBS and fq.P == jfq.P
+    assert (outer.W12, outer.Q_TERMS, outer.S_SLOTS, outer.POS_BLOCK) == (
+        jouter.W12, jouter.Q_TERMS, jouter.S_SLOTS, jouter.POS_BLOCK)
+    props = [n for n, v in vars(jouter.OuterLayout).items() if isinstance(v, property)]
+    assert len(props) > 20
+    for dims in [(10, 4, 1, 0), (10, 4, 2, 1), (10, 4, 3, 0), (6, 2, 1, 1)]:
+        a, b = outer.OuterLayout(*dims), jouter.OuterLayout(*dims)
+        assert {n: getattr(a, n) for n in props} == {n: getattr(b, n) for n in props}, dims
