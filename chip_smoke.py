@@ -8,18 +8,27 @@ Phases (any failure exits non-zero before the result line):
      one nvcc a source, all started together), and count the SASS
      instructions of each Goldilocks operation (bounds.sass_costs): they must
      equal the fixed costs the bounds use;
-  3. the demo STARK proved on the card must equal its proof on the CPU
+  3. the native host Poseidon (csrc/host_poseidon.cpp, g++ at first use):
+     permute, hash_no_pad and two_to_one equal their python versions on
+     random states and the edge words 0, 1, p - 1, p; verify_path accepts a
+     real path and rejects a flipped sibling;
+  4. the demo STARK proved on the card must equal its proof on the CPU
      (plain versions) bit for bit;
-  4. the three machine paths, each with the launch counts set to 0 just
-     before it and read just after, 128 ops from numpy.random.default_rng(2024):
+  5. the three machine paths, 128 ops from numpy.random.default_rng(2024):
        g1      128 G1 scalar multiplications s x + offset (as bench.py)
                -> generate_trace (2^16 x 781),
        fq_exp  128 exponentiations x^s -> generate_trace (2^16 x 427),
        g2      128 G2 scalar multiplications -> generate_trace (2^16 x 1295),
-     -> prove at DEFAULT_CONFIG -> verify, with every kernel's launch count
-     above zero on each path, and a proof with one flipped opening rejected;
-     the wrappers record the shape of every launch (kernels.CALLS);
-  5. the compose path, the circuit API's production product (as
+     each trace proved at DEFAULT_CONFIG three times, with the Fiat–Shamir
+     transcript on the device (the default on the card), on the host, and
+     on the device again (the first proof of a path meets cold tables),
+     each with the launch counts set to 0 just before and read just after
+     (every kernel launched; device FS also K2 at [1, 12]), its synchronised
+     wall and its synchronising CUDA operations (torch.cuda sync debug
+     mode) by site; the proofs equal field by field; the device-FS
+     proof verifies and is rejected with one opening flipped; the wrappers
+     record the shape of every launch (kernels.CALLS);
+  6. the compose path, the circuit API's production product (as
      scripts/prove_compose_default.py and scripts/bench_outer.py define it):
      two fq_exp ops from numpy.random.default_rng(123) recorded on a
      CircuitBuilder, the first op's output limbs public, the hook and the
@@ -32,25 +41,35 @@ Phases (any failure exits non-zero before the result line):
                       just after: every kernel must have launched,
      then verify_all, a corrupted public value and a flipped opening both
      rejected;
-  6. each kernel against its plain PyTorch version on the card, at every
+  7. the h2g phase: hash_to_g2_circuit over 4 inputs from
+     numpy.random.default_rng(170), the real backend on the card (the hook
+     at the inner config of tests/test_torch_cuda.py's three-kinds test
+     proves the is_square fq_exp ops and the cofactor g2_scalar_mul), the
+     output point public, one outer proof at TEST_CONFIG: the point equals
+     the native hash_to_g2 mirror, verify_all accepts, a flipped opening is
+     rejected, and every kernel launched during the phase;
+  8. each kernel against its plain PyTorch version on the card, at every
      shape any path launched it with and at a few odd sizes, with
      torch.equal (exact integer arithmetic: the tolerance is zero); the
      kernel timed at each path shape beside its bound (bounds.py), the
-     plain version at the largest;
-  7. per path, the stage times and wall of one proof under the
+     plain version at the largest and the smallest;
+  9. per path, the stage times and wall of one proof under the
      synchronising timer and its peak device memory.
 
-Prints each phase's seconds, a JSON line per path ("path": first proof,
-verify, synchronised wall, peak memory, launches), the kernel table as one
-JSON line (each kernel's largest shape, and every shape with its launches on
-each path under "shapes"), then the card line, then
+Prints each phase's seconds, a JSON line for the native library and per
+path ("path": both flows' walls, synchronising operations and launches,
+verify, synchronised wall, peak memory), the kernel table as one JSON line
+(each kernel's largest shape, and every shape with its launches on each
+path under "shapes"), then the card line, then
 {"ok": true, "device": {...}} as the last line.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
+import warnings
 from collections import Counter
 
 import numpy as np
@@ -62,6 +81,8 @@ PATHS = ("g1", "fq_exp", "g2")
 COMPOSE_SEED = 123
 COMPOSE_OPS = 2
 TABLE_BITS = 16
+H2G_SEED = 170
+H2G_INPUTS = 4
 
 KERNELS = {
     "K1": ("hash_leaves", "plonky2_bn254_tpu_torch/csrc/poseidon.cu",
@@ -115,6 +136,74 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def count_syncs(fn):
+    """(fn(), Counter of "file:line" -> synchronising CUDA operations made
+    there) under torch.cuda's sync debug mode: every device-to-host copy,
+    every read of a device value, and every blocking host-to-device copy."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = Counter(f"{os.path.relpath(w.filename, root)}:{w.lineno}" for w in caught
+                    if "synchroniz" in str(w.message))
+    return result, sites
+
+
+def native_check() -> dict:
+    """The host Poseidon library (field/native.py, built with g++ at first
+    use) against the python versions on random words and the edge words 0,
+    1, p - 1 and p; verify_path on a real tree, and with a flipped sibling."""
+    from plonky2_bn254_tpu_torch.field import goldilocks as gl
+    from plonky2_bn254_tpu_torch.field import native, poseidon
+    from plonky2_bn254_tpu_torch.prover.merkle import MerkleTree, build_tree
+
+    t0 = time.perf_counter()
+    lib = native.library()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    edge = [0, 1, gl.P - 1, gl.P]
+    states = rng.integers(0, 2**64 - 1, size=(256, 12), dtype=np.uint64, endpoint=True)
+    states = [[int(v) for v in row] for row in states]
+    for i, e in enumerate(edge):
+        states[i] = [e] * 12
+        for j in range(12):
+            states[4 + 12 * i + j][j] = e
+    for s in states:
+        n = int(rng.integers(0, 30))
+        if (poseidon.h_permute(s) != poseidon.h_permute_plain(s)
+                or poseidon.h_hash_no_pad((s * 3)[:n]) != poseidon.h_hash_no_pad_plain((s * 3)[:n])
+                or poseidon.h_two_to_one(s[:4], s[4:8]) != poseidon.h_two_to_one_plain(s[:4], s[4:8])):
+            raise AssertionError(f"native Poseidon differs from the python version at {s}")
+    leaves = rand_residues(rng, (256, 13), "cpu")
+    tree = build_tree(leaves, cap_height=4)
+    for index in (0, 77, 255):
+        digest, path = tree.levels[0][index], tree.prove(index)
+        if not MerkleTree.verify(digest, index, path, tree.cap):
+            raise AssertionError(f"verify_path rejected the real path of leaf {index}")
+        bad = [p.copy() for p in path]
+        bad[1][2] ^= 1
+        if MerkleTree.verify(digest, index, bad, tree.cap):
+            raise AssertionError(f"verify_path accepted a flipped sibling at leaf {index}")
+    reps = 2000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        poseidon.h_permute(states[-1])
+    native_us = (time.perf_counter() - t0) / reps * 1e6
+    t0 = time.perf_counter()
+    for _ in range(reps // 20):
+        poseidon.h_permute_plain(states[-1])
+    plain_us = (time.perf_counter() - t0) / (reps // 20) * 1e6
+    log(f"  built in {build_s:.2f} s -> {lib._name}; permute, hash_no_pad, two_to_one equal "
+        f"the python versions on {len(states)} states (edge words 0, 1, p-1, p among them); "
+        f"verify_path accepts real paths, rejects flipped siblings; one permutation "
+        f"{native_us:.1f} us native, {plain_us:.1f} us python")
+    return {"build_s": build_s, "permute_us": native_us, "permute_plain_us": plain_us}
 
 
 def clock_max_mhz() -> float:
@@ -184,7 +273,8 @@ def compare_kernels(device, calls_by_path: dict, sms: int, clock_mhz: float) -> 
             del got, want
             if i < len(timed):
                 ms = cuda_ms(lambda: kern(x), reps=20)
-                plain_ms = cuda_ms(lambda: plain(x), reps=1) if i == 0 else None
+                plain_ms = (cuda_ms(lambda: plain(x), reps=1)
+                            if i in (0, len(timed) - 1) else None)
                 bound, bound_by = bounds.bound_ms(*work, sms, clock_mhz)
                 per_path = {p: calls_by_path[p][kid].get(key, 0) for p in calls_by_path}
                 rows.append({"key": list(key), "launches": per_path, "ms": ms,
@@ -245,16 +335,25 @@ class Path:
             self.inputs = [(scalar(), point(rng), point(rng), t) for t in range(N_OPS)]
         self.ctl_values = self.module.generate_ctl_values(self.inputs)
 
-    def prove(self, tt=None):
+    def trace(self):
+        trace = self.module.generate_trace(self.inputs, device=self.device)
+        assert trace.shape == (1 << 16, self.stark.width), trace.shape
+        return trace
+
+    def prove_trace(self, trace, tt=None, device_fs=None):
         from plonky2_bn254_tpu_torch.prover import prove as prove_mod
         from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG
+
+        return prove_mod.prove(self.stark, trace, self.ctl_values, DEFAULT_CONFIG, timing=tt,
+                               device_fs=device_fs)
+
+    def prove(self, tt=None):
         from plonky2_bn254_tpu_torch.utils.timing import TimingTree
 
         tt = tt or TimingTree(enabled=False)
         with tt.scope("trace gen"):
-            trace = self.module.generate_trace(self.inputs, device=self.device)
-        assert trace.shape == (1 << 16, self.stark.width), trace.shape
-        return prove_mod.prove(self.stark, trace, self.ctl_values, DEFAULT_CONFIG, timing=tt)
+            trace = self.trace()
+        return self.prove_trace(trace, tt)
 
     def verify(self, proof):
         from plonky2_bn254_tpu_torch.prover import verify as verify_mod
@@ -267,43 +366,80 @@ def gb(nbytes: int) -> float:
     return nbytes / 1e9
 
 
-def first_proof(path: Path) -> dict:
-    """The path's first proof with the launch counts set to 0 just before
-    and read just after; then verify it, and reject it with one opening
-    flipped."""
+def flow_run(path: Path, trace, device_fs: bool):
+    """One proof of `trace` in one Fiat–Shamir flow, with the launch counts
+    set to 0 just before and read just after: (proof, record) with its
+    synchronised wall, its synchronising operations by site and its
+    launches; fails unless every kernel launched (and, for device FS, K2 at
+    [1, 12], the device challenger's duplex)."""
     from plonky2_bn254_tpu_torch import kernels
-    from plonky2_bn254_tpu_torch.field.extension import GLExt
-    from plonky2_bn254_tpu_torch.prover import verify as verify_mod
 
-    log(f"# path {path.name}: {N_OPS} ops, 2^16 x {path.stark.width} trace, DEFAULT_CONFIG")
+    flow = "device FS" if device_fs else "host FS"
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(path.device)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    proof = path.prove()
+    proof, sites = count_syncs(lambda: path.prove_trace(trace, device_fs=device_fs))
     torch.cuda.synchronize()
-    prove_s = time.perf_counter() - t0
+    wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     calls = {k: dict(kernels.CALLS[k]) for k in kernels.KERNEL_IDS}
+    k2_single = calls["K2"].get((1,), 0)
     peak = gb(torch.cuda.max_memory_allocated(path.device))
-    log(f"  first proof {prove_s:.2f} s; launches {launches}; peak device memory {peak:.2f} GB")
+    log(f"  {flow}: synchronised wall {wall:.3f} s; {sum(sites.values())} synchronising "
+        f"operations {dict(sites.most_common())}; launches {launches}, K2 at [1, 12] "
+        f"{k2_single}; peak device memory {peak:.2f} GB")
     missing = [k for k in kernels.KERNEL_IDS if launches[k] <= 0]
+    if device_fs and k2_single <= 0:
+        missing.append("K2 at [1, 12]")
     if missing:
-        raise AssertionError(f"path {path.name} never launched {missing}")
+        raise AssertionError(f"path {path.name} ({flow}) never launched {missing}")
+    return proof, {"wall_s": wall, "syncs": sum(sites.values()), "sync_sites": dict(sites),
+                   "launches": launches, "k2_single_launches": k2_single, "peak_gb": peak,
+                   "calls": calls}
+
+
+def first_proof(path: Path) -> dict:
+    """Trace the path's inputs once; prove the trace with the transcript on
+    the device (the default on the card), on the host and on the device
+    again; the proofs equal field by field; the device-FS proof verifies,
+    and is rejected with one opening flipped."""
+    from plonky2_bn254_tpu_torch.field.extension import GLExt
+    from plonky2_bn254_tpu_torch.interop import proof_to_fields
+    from plonky2_bn254_tpu_torch.prover import verify as verify_mod
+
+    log(f"# path {path.name}: {N_OPS} ops, 2^16 x {path.stark.width} trace, DEFAULT_CONFIG")
+    t0 = time.perf_counter()
+    trace = path.trace()
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    log(f"  trace gen {trace_s:.2f} s")
+    # device, host, device: the first proof of a path meets cold tables
+    dev_proof, dev_run = flow_run(path, trace, device_fs=True)
+    host_proof, host_run = flow_run(path, trace, device_fs=False)
+    warm_proof, warm_run = flow_run(path, trace, device_fs=True)
+    as_json = lambda p: json.dumps(proof_to_fields(p), default=lambda v: v.tolist())
+    if not as_json(dev_proof) == as_json(host_proof) == as_json(warm_proof):
+        raise AssertionError(f"path {path.name}: the device-FS proof differs from the host-FS proof")
+    log("  device-FS proofs equal the host-FS proof field by field")
 
     t0 = time.perf_counter()
-    path.verify(proof)
+    path.verify(dev_proof)
     verify_s = time.perf_counter() - t0
-    log(f"  verified in {verify_s:.2f} s")
-    proof.openings.trace_zeta[0] = proof.openings.trace_zeta[0] + GLExt(1)
+    log(f"  device-FS proof verified in {verify_s:.2f} s (host verifier, native Poseidon)")
+    dev_proof.openings.trace_zeta[0] = dev_proof.openings.trace_zeta[0] + GLExt(1)
     try:
-        path.verify(proof)
+        path.verify(dev_proof)
     except verify_mod.VerificationError as e:
         log(f"  tampered proof rejected: {e}")
     else:
         raise AssertionError(f"path {path.name}: a proof with a flipped opening was accepted")
-    return {"first_proof_s": prove_s, "verify_s": verify_s, "first_peak_gb": peak,
-            "launches": launches, "calls": calls}
-
+    return {"trace_gen_s": trace_s, "verify_s": verify_s,
+            "device_fs": {k: v for k, v in dev_run.items() if k != "calls"},
+            "host_fs": {k: v for k, v in host_run.items() if k != "calls"},
+            "device_fs_again": {k: v for k, v in warm_run.items() if k != "calls"},
+            "launches": dev_run["launches"], "calls": dev_run["calls"],
+            "host_fs_calls": host_run["calls"]}
 
 
 class Compose:
@@ -443,6 +579,93 @@ def compose_first_proof(path: Compose) -> dict:
     return res
 
 
+# The hook config of tests/test_torch_cuda.py::test_compose_three_kinds_on_card.
+H2G_HOOK_CONFIG = dict(num_challenges=2, rate_bits=1, cap_height=1, proof_of_work_bits=8,
+                       num_query_rounds=4, arity_bits=2, final_poly_degree_bits=3)
+
+
+def hash_to_g2_phase(device) -> dict:
+    """hash_to_g2_circuit over H2G_INPUTS field elements with the real
+    backend on the card: the hook proves the is_square fq_exp ops and the
+    blinded cofactor g2_scalar_mul at witness time (device FS) and
+    self-verifies them; the output point's limbs are public; one outer proof
+    at TEST_CONFIG; verify_all accepts it and rejects it with one opening
+    flipped; the public point equals the native mirror hash_to_g2.  Launch
+    counts are set to 0 before the phase and read after it."""
+    from plonky2_bn254_tpu_torch import interop, kernels
+    from plonky2_bn254_tpu_torch.circuit import builder_ops, outer
+    from plonky2_bn254_tpu_torch.circuit import hash_to_g2 as h2g
+    from plonky2_bn254_tpu_torch.circuit.builder import CircuitBuilder, Witness
+    from plonky2_bn254_tpu_torch.field.extension import GLExt
+    from plonky2_bn254_tpu_torch.prover import verify as verify_mod
+    from plonky2_bn254_tpu_torch.prover.config import TEST_CONFIG, StarkConfig
+    from plonky2_bn254_tpu_torch.utils.timing import TimingTree
+
+    rng = np.random.default_rng(H2G_SEED)
+    inputs = [int(rng.integers(0, 1 << 60)) for _ in range(H2G_INPUTS)]
+    want = h2g.hash_to_g2(inputs)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    builder = CircuitBuilder()
+    hook = builder_ops.get_bn254_hook(builder)
+    hook.stark_config = StarkConfig(**H2G_HOOK_CONFIG)
+    hook.timing = TimingTree(enabled=True)
+    targets = [builder.add_virtual_target() for _ in inputs]
+    out = h2g.hash_to_g2_circuit(builder, targets)
+    for t in out.to_vec():
+        builder.register_public_input(t)
+    pw = Witness()
+    for t, v in zip(targets, inputs):
+        pw.set_target(t, v)
+    circuit = builder.build()
+    res = {"build_s": time.perf_counter() - t0, "targets": builder.num_targets}
+
+    t0 = time.perf_counter()
+    values = circuit.generate_witness(pw, device)
+    torch.cuda.synchronize()
+    res["witness_s"] = time.perf_counter() - t0
+    res["witness_stages_s"] = {stage: secs for _, stage, secs in hook.timing.records}
+    if out.get_witness(values) != want:
+        raise AssertionError("h2g: the circuit's output differs from the native hash_to_g2")
+    if not {"fq_exp", "g2_scalar_mul"} <= set(hook.proof):
+        raise AssertionError(f"h2g: the hook proved {sorted(hook.proof)}")
+    t0 = time.perf_counter()
+    data = circuit.outer_data(TABLE_BITS, device)
+    res["compile_outer_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof, publics = outer.prove_outer(data, values, TEST_CONFIG)
+    torch.cuda.synchronize()
+    res["outer_proof_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    circuit.verify_all(proof, publics, TEST_CONFIG, TABLE_BITS, device)
+    res["verify_all_s"] = time.perf_counter() - t0
+    res["launches"] = dict(kernels.LAUNCHES)
+    res["calls"] = {k: dict(kernels.CALLS[k]) for k in kernels.KERNEL_IDS}
+    words = [sum(v << (32 * i) for i, v in enumerate(publics[8 * k : 8 * k + 8]))
+             for k in range(4)]
+    if ((words[0], words[1]), (words[2], words[3])) != want:
+        raise AssertionError("h2g: the public point differs from the native hash_to_g2")
+    flipped = interop.proof_from_fields(interop.proof_to_fields(proof))
+    flipped.openings.trace_zeta[0] = flipped.openings.trace_zeta[0] + GLExt(1)
+    try:
+        circuit.verify_all(flipped, publics, TEST_CONFIG, TABLE_BITS, device)
+    except verify_mod.VerificationError as e:
+        log(f"  flipped opening rejected: {e}")
+    else:
+        raise AssertionError("h2g: an outer proof with a flipped opening was accepted")
+    missing = [k for k in kernels.KERNEL_IDS if res["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"the h2g phase never launched {missing}")
+    log(f"  {H2G_INPUTS} inputs, {res['targets']:,} targets, build {res['build_s']:.2f} s; "
+        f"witness {res['witness_s']:.2f} s ("
+        + ", ".join(f"{k} {v:.2f} s" for k, v in res["witness_stages_s"].items())
+        + f"); compile_outer {res['compile_outer_s']:.2f} s (2^{data.n_log} x "
+        f"{data.lay.width}); outer proof {res['outer_proof_s']:.2f} s; verify_all "
+        f"{res['verify_all_s']:.2f} s; launches {res['launches']}")
+    log("  output = native hash_to_g2(inputs), public and in the witness")
+    return res
+
+
 def synced_proof(path) -> dict:
     """Stage times and wall of one proof under the synchronising timer."""
     from plonky2_bn254_tpu_torch.utils.timing import TimingTree
@@ -499,10 +722,12 @@ def main() -> int:
     if costs != bounds.OP_COST:
         raise AssertionError(f"SASS op costs {costs} differ from bounds.OP_COST {bounds.OP_COST}")
 
+    log("# native host Poseidon (plonky2_bn254_tpu_torch/csrc/host_poseidon.cpp)")
+    native = native_check()
     log("# demo STARK: card proof vs CPU proof")
     demo_matches_cpu(device)
     log("  equal, and verified")
-    phase_done("build and demo", t_start)
+    phase_done("build, native library and demo", t_start)
 
     # ---- the three paths ---------------------------------------------------
     paths, runs = {}, {}
@@ -518,9 +743,16 @@ def main() -> int:
     phase_done("compose build, witness, compile_outer, first outer proof, verify_all", t0)
     main_paths = PATHS + ("compose",)
 
+    log(f"# phase h2g: hash_to_g2_circuit over {H2G_INPUTS} inputs, real backend on the card")
+    t0 = time.perf_counter()
+    runs["h2g"] = hash_to_g2_phase(device)
+    phase_done("h2g", t0)
+
     log("# kernels vs plain versions at every path shape (torch.equal, tolerance 0)")
     t0 = time.perf_counter()
-    calls_by_path = {p: runs[p]["calls"] for p in main_paths}
+    calls_by_path = {p: runs[p]["calls"] for p in main_paths + ("h2g",)}
+    for p in PATHS:
+        calls_by_path[f"{p} host FS"] = runs[p]["host_fs_calls"]
     calls_by_path["compose witness"] = runs["compose"]["witness_calls"]
     calls_by_path["compose compile_outer"] = runs["compose"]["compile_calls"]
     kres = compare_kernels(device, calls_by_path, sms, clock_mhz)
@@ -533,14 +765,15 @@ def main() -> int:
         phase_done(f"{name} synchronised proof", t0)
 
     name = torch.cuda.get_device_name(0)
-    hidden = ("calls", "witness_calls", "compile_calls")
-    for p in main_paths:
+    hidden = ("calls", "witness_calls", "compile_calls", "host_fs_calls")
+    print(json.dumps({"native_host_poseidon": native}))
+    for p in main_paths + ("h2g",):
         print(json.dumps({"path": p, **{k: v for k, v in runs[p].items() if k not in hidden}}))
 
     table = {"kernels": []}
     for kid in kernels.KERNEL_IDS:
         main = kres[kid]["timed"][0]
-        by_path = {p: runs[p]["launches"][kid] for p in main_paths}
+        by_path = {p: runs[p]["launches"][kid] for p in main_paths + ("h2g",)}
         table["kernels"].append({
             "name": f"{kid} {KERNELS[kid][0]}", "route": "cuda", "source": KERNELS[kid][1],
             "replaces": KERNELS[kid][2], "launches": sum(by_path.values()),

@@ -1,6 +1,6 @@
 """Circuit gadget layer: the reference's L7-L9 public API surface.
 
-Port of `plonky2_bn254_tpu/circuit/`, without `hash_to_g2.py`.  The gadget
+Port of `plonky2_bn254_tpu/circuit/`.  The gadget
 layer is host Python on ints; the hook's batch provers and the outer prover
 run on the card unless the caller passes `device="cpu"`.
 
@@ -11,6 +11,7 @@ run on the card unless the caller passes `device="cpu"`.
   builder_ops.py   — fq_exp / g1_scalar_mul / g2_scalar_mul + Bn254Hook
                      (builder.rs, hook.rs, generators/)
   msm.py           — g1_msm (utils/g1_msm.rs)
+  hash_to_g2.py    — HashToG2 (utils/hash_to_g2.rs)
   poseidon_gadget.py — in-circuit Poseidon + RecursiveChallenger
   ext_target.py    — degree-2 extension targets, bit split, random access
   stark_verifier.py — the recursive STARK verifier over targets
@@ -40,3 +41,4 @@ from .builder_ops import (  # noqa: F401
     set_random_g2,
 )
 from .msm import g1_msm  # noqa: F401
+from . import hash_to_g2  # noqa: F401

@@ -876,7 +876,9 @@ def prove_outer(data: OuterData, values: Dict[int, int], config=None, timing=Non
     tt = timing_mod.get(timing)
     with tt.scope("outer trace"):
         trace, public_values, ctl_values = build_outer_trace(data, values)
-    proof = prove_mod.prove(data.stark, trace, ctl_values, config, timing=timing)
+    # the outer proof keeps the host transcript
+    proof = prove_mod.prove(data.stark, trace, ctl_values, config, timing=timing,
+                            device_fs=False)
     return proof, public_values
 
 

@@ -2,8 +2,10 @@
 
 Port of `plonky2_bn254_tpu/field/poseidon.py`.  The tensor flavor works on
 `[..., 12]` int64 residue tensors and is the plain version of the hand
-kernels in `poseidon_cuda.py`.  A host mirror over python ints backs the
-sequential challenger and the verifier.
+kernels in `poseidon_cuda.py`.  The host flavor over python ints backs the
+sequential challenger, the verifier and the circuit's Poseidon generators:
+`h_permute`, `h_hash_no_pad` and `h_two_to_one` call the native library
+(`native.py`); their pure-python bodies stay as `h_*_plain`, for the tests.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from ..interop import tensor_from_u64
 from . import goldilocks as gl
+from . import native
 from .poseidon_constants import (
     ALPHA,
     DIGEST_LEN,
@@ -111,12 +114,27 @@ def two_to_one(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Host scalar mirror (python ints) — challenger / verifier / tests
+# Host scalar flavor (python ints) — challenger / verifier / circuit
 # ---------------------------------------------------------------------------
 
 
 def h_permute(state):
-    """Permutation on a list of 12 python ints."""
+    """Permutation on a list of 12 python ints (the native library)."""
+    return native.permute(state)
+
+
+def h_hash_no_pad(inputs):
+    """Sponge hash of a python-int list -> 4-int digest (the native library)."""
+    return native.hash_no_pad(inputs)
+
+
+def h_two_to_one(left, right):
+    """Merkle compression of two 4-int digests (the native library)."""
+    return native.two_to_one(left, right)
+
+
+def h_permute_plain(state):
+    """Permutation on a list of 12 python ints, in python."""
     assert len(state) == WIDTH
     p = gl.P
     state = [s % p for s in state]
@@ -142,16 +160,17 @@ def h_permute(state):
     return state
 
 
-def h_hash_no_pad(inputs):
-    """Sponge hash of a python-int list -> 4-int digest."""
+def h_hash_no_pad_plain(inputs):
+    """Sponge hash of a python-int list -> 4-int digest, in python."""
     state = [0] * WIDTH
     for start in range(0, len(inputs), SPONGE_RATE):
         chunk = [int(v) for v in inputs[start : start + SPONGE_RATE]]
         chunk += [0] * (SPONGE_RATE - len(chunk))
-        state = h_permute(chunk + state[SPONGE_RATE:])
+        state = h_permute_plain(chunk + state[SPONGE_RATE:])
     return state[:DIGEST_LEN]
 
 
-def h_two_to_one(left, right):
+def h_two_to_one_plain(left, right):
+    """Merkle compression of two 4-int digests, in python."""
     state = [int(v) for v in left] + [int(v) for v in right]
-    return h_permute(state + [0] * (WIDTH - 2 * DIGEST_LEN))[:DIGEST_LEN]
+    return h_permute_plain(state + [0] * (WIDTH - 2 * DIGEST_LEN))[:DIGEST_LEN]

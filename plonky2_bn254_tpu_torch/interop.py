@@ -17,9 +17,13 @@ import torch
 
 
 def tensor_from_u64(arr: np.ndarray, device=None) -> torch.Tensor:
-    """numpy uint64 array -> int64 tensor with the same bit pattern."""
+    """numpy uint64 array -> int64 tensor with the same bit pattern.
+
+    The copy to a card does not wait for the card's queue (a pageable
+    source is staged before the call returns), so a constant handed to
+    queued work does not stall the host."""
     arr = np.ascontiguousarray(arr, dtype=np.uint64)
-    return torch.from_numpy(arr.view(np.int64).copy()).to(device)
+    return torch.from_numpy(arr.view(np.int64).copy()).to(device, non_blocking=True)
 
 
 def u64_from_tensor(t: torch.Tensor) -> np.ndarray:

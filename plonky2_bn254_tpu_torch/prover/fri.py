@@ -1,6 +1,7 @@
-"""Batch FRI with host Fiat-Shamir: commit/fold on the device, host checks.
+"""Batch FRI: commit/fold on the device, host checks.
 
-Port of `plonky2_bn254_tpu/prover/fri.py` (the host-challenger path).  The
+Port of `plonky2_bn254_tpu/prover/fri.py`: `prove_fri` drives the host
+challenger, `prove_fri_device` the device one (`device_challenger.py`).  The
 FRI oracle is an extension-field polynomial given by its values on the LDE
 coset (natural order); Merkle leaves group the 2^arity_bits sibling values
 (bit-reversed order makes fold fibers contiguous).
@@ -25,7 +26,8 @@ from ..field.extension import Ext, GLExt
 from ..interop import tensor_from_u64, u64_from_tensor
 from ..utils import timing as timing_mod
 from .config import StarkConfig
-from .merkle import MerkleTree, device_tree_levels, gather_rows_and_paths
+from .device_challenger import ext_powers_rows
+from .merkle import MerkleTree, device_tree_levels, gather_paths_dev, gather_rows_and_paths
 from .poly_batch import bit_rev_perm, bit_rev_perm_dev
 
 
@@ -65,8 +67,10 @@ def _inv_point_pows_dev(m_log: int, a_bits: int, shift: int, device: torch.devic
     return tensor_from_u64(_inv_point_pows(m_log, a_bits, shift), device)
 
 
-def fold_layer(values: Ext, m_log: int, a_bits: int, shift: int, beta: GLExt) -> Ext:
-    """One fold: Ext values [M] natural order -> Ext values [M/A]."""
+def fold_layer(values: Ext, m_log: int, a_bits: int, shift: int,
+               beta_pows: torch.Tensor) -> Ext:
+    """One fold: Ext values [M] natural order -> Ext values [M/A];
+    `beta_pows` holds the rows (c0, c1) of beta^0 .. beta^(A-1)."""
     M = 1 << m_log
     A = 1 << a_bits
     inv_pows = _inv_point_pows_dev(m_log, a_bits, shift, values.c0.device)
@@ -75,18 +79,22 @@ def fold_layer(values: Ext, m_log: int, a_bits: int, shift: int, beta: GLExt) ->
     d1 = ntt_cuda.intt(values.c1.reshape(A, M // A).T.contiguous()).T
     t0 = gl.mul(d0, inv_pows)  # [A, M/A]
     t1 = gl.mul(d1, inv_pows)
-    # beta^j per row as (c0, c1, 7*c1)
-    beta_pows = np.empty((A, 3), dtype=np.uint64)
-    bp = GLExt.one()
-    for j in range(A):
-        beta_pows[j] = (bp.c0, bp.c1, 7 * bp.c1 % gl.P)
-        bp = bp * beta
-    bt = tensor_from_u64(beta_pows, values.c0.device)
-    b0, b1, b1w = bt[:, 0:1], bt[:, 1:2], bt[:, 2:3]
+    b0, b1 = beta_pows[:, 0:1], beta_pows[:, 1:2]
+    b1w = gl.mul_const(b1, 7)
     # (t0 + t1 u) * (b0 + b1 u), u^2 = 7, summed over the A axis
     acc0 = gl.add(gl.mul(t0, b0), gl.mul(t1, b1w))
     acc1 = gl.add(gl.mul(t0, b1), gl.mul(t1, b0))
     return Ext(_halving_sum(acc0), _halving_sum(acc1))
+
+
+def _host_ext_powers(beta: GLExt, a_bits: int, device) -> torch.Tensor:
+    """[A, 2] rows (c0, c1) of beta^0 .. beta^(A-1) from a host challenge."""
+    rows = np.empty((1 << a_bits, 2), dtype=np.uint64)
+    bp = GLExt.one()
+    for j in range(1 << a_bits):
+        rows[j] = (bp.c0, bp.c1)
+        bp = bp * beta
+    return tensor_from_u64(rows, device)
 
 
 def _halving_sum(arr: torch.Tensor) -> torch.Tensor:
@@ -106,22 +114,29 @@ def _ext_leaves(values: Ext, m_log: int, a_bits: int) -> torch.Tensor:
     return torch.stack([l0, l1], dim=-1).reshape(M // A, 2 * A)
 
 
-def pow_grind(challenger, pow_bits: int, device) -> int:
-    """Smallest nonce whose sponge output has `pow_bits` leading zeros: one
-    batch of 2^(pow_bits+4) permutations (kernel K2) per try."""
+def pow_grind_device(state: torch.Tensor, pow_bits: int) -> torch.Tensor:
+    """Smallest nonce whose sponge output from `state` ([12], on the device,
+    input buffer empty) has `pow_bits` leading zeros, as a 0-d tensor on the
+    device: one batch of 2^max(pow_bits+4, 12) permutations (kernel K2) per
+    try and one pull of `found` per batch."""
     batch = 1 << max(pow_bits + 4, 12)
-    state = torch.tensor([gl.i64(s) for s in challenger.state], dtype=torch.int64,
-                         device=device)
     start = 0
     while True:
         states = state.expand(batch, poseidon.WIDTH).clone()
-        states[:, 0] = torch.arange(start, start + batch, dtype=torch.int64, device=device)
+        states[:, 0] = torch.arange(start, start + batch, dtype=torch.int64,
+                                    device=state.device)
         out = poseidon_cuda.permute_states(states)
         ok = ((out[:, 7] >> (64 - pow_bits)) & ((1 << pow_bits) - 1)) == 0
-        hits = torch.nonzero(ok)
-        if hits.numel():
-            return start + int(hits[0, 0])
+        if bool(ok.any()):
+            return start + torch.argmax(ok.to(torch.int32))  # the first hit
         start += batch
+
+
+def pow_grind(challenger, pow_bits: int, device) -> int:
+    """`pow_grind_device` from the host challenger's state."""
+    state = torch.tensor([gl.i64(s) for s in challenger.state], dtype=torch.int64,
+                         device=device)
+    return int(pow_grind_device(state, pow_bits))
 
 
 def pow_check(challenger, nonce: int, pow_bits: int) -> bool:
@@ -185,7 +200,7 @@ def prove_fri(values: Ext, n_log: int, config: StarkConfig, challenger, timing=N
             caps.append(cap)
             challenger.observe_cap(cap)
             beta = challenger.get_extension_challenge()
-            layer_values.append(fold_layer(v, m_log, a, shift, beta))
+            layer_values.append(fold_layer(v, m_log, a, shift, _host_ext_powers(beta, a, device)))
 
     with tt.scope("fri final poly"):
         c0, c1 = final_poly(layer_values[-1], final_m_log, final_shift)
@@ -230,6 +245,62 @@ def prove_fri(values: Ext, n_log: int, config: StarkConfig, challenger, timing=N
 
     proof = FriProof(layer_caps=caps, final_coeffs=final_coeffs, pow_nonce=nonce)
     return proof, query_indices, queries
+
+
+def prove_fri_device(values: Ext, n_log: int, config: StarkConfig, challenger,
+                     timing=None) -> dict:
+    """`prove_fri` with the transcript on the device (a `DeviceChallenger`):
+    caps, betas, the final polynomial, the nonce and the query indices stay
+    there, and the query indices drive the row and path gathers there.
+
+    Returns a dict of device tensors for the proof's single pull: "caps"
+    (per layer [k, 4]), "final" ([2, n_final]), "nonce", "pow_ok",
+    "q_idx" ([Q]), "layers" (per layer (rows [Q, 2A], paths)), and
+    "layers_cfg" (`domain_shifts_and_sizes`)."""
+    tt = timing_mod.get(timing)
+    layers_cfg, (final_m_log, final_shift, final_deg_bits) = domain_shifts_and_sizes(
+        n_log, config
+    )
+    vals = values
+    caps, layer_leaves, layer_levels = [], [], []
+    with tt.scope("fri commit/fold"):
+        for m_log, shift, a in layers_cfg:
+            leaves = _ext_leaves(vals, m_log, a)
+            levels = device_tree_levels(leaves, min(config.cap_height, m_log - a))
+            caps.append(levels[-1])
+            layer_leaves.append(leaves)
+            layer_levels.append(levels)
+            challenger.observe_cap(levels[-1])
+            b0, b1 = challenger.get_n_challenges(2)
+            vals = fold_layer(vals, m_log, a, shift, ext_powers_rows(b0, b1, 1 << a))
+
+    with tt.scope("fri final poly"):
+        c0, c1 = final_poly(vals, final_m_log, final_shift)
+        n_final = 1 << final_deg_bits
+        final = torch.stack([c0[:n_final], c1[:n_final]])
+        challenger.observe_flat(final.T.reshape(-1))  # (c0, c1) per coefficient
+
+    # the grind hashes the state as it stands (as the host pow_grind reads
+    # challenger.state): nothing may wait in the input buffer
+    assert not challenger.input_buffer, "input buffer not empty at the proof of work"
+    pow_bits = config.proof_of_work_bits
+    with tt.scope("fri pow"):
+        nonce = pow_grind_device(challenger.state, pow_bits)
+    challenger.observe_element(nonce)
+    pow_ok = ((challenger.get_challenge() >> (64 - pow_bits)) & ((1 << pow_bits) - 1)) == 0
+    big_n = 1 << (n_log + config.rate_bits)
+    q_idx = torch.stack(challenger.get_n_challenges(config.num_query_rounds)) & (big_n - 1)
+
+    with tt.scope("fri query gather"):
+        layers = []
+        r = q_idx
+        for li, (m_log, shift, a) in enumerate(layers_cfg):
+            groups = r >> a
+            layers.append((layer_leaves[li][groups], gather_paths_dev(layer_levels[li], groups)))
+            r = groups
+
+    return {"caps": caps, "final": final, "nonce": nonce, "pow_ok": pow_ok, "q_idx": q_idx,
+            "layers": layers, "layers_cfg": layers_cfg}
 
 
 # ---------------------------------------------------------------------------

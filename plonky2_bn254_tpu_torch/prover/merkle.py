@@ -13,8 +13,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ..field import poseidon
-from ..field import poseidon_cuda
+from ..field import native, poseidon_cuda
 from ..interop import u64_from_tensor
 
 
@@ -38,15 +37,9 @@ class MerkleTree:
 
     @staticmethod
     def verify(leaf_digest, index: int, path, cap) -> bool:
-        h = [int(x) for x in leaf_digest]
-        for sib in path:
-            s = [int(x) for x in sib]
-            if index & 1:
-                h = poseidon.h_two_to_one(s, h)
-            else:
-                h = poseidon.h_two_to_one(h, s)
-            index >>= 1
-        return h == [int(x) for x in cap[index]]
+        """True when `path` leads from `leaf_digest` at `index` to its cap
+        node (the native library's `verify_path`)."""
+        return native.verify_path(leaf_digest, index, path, cap[index >> len(path)])
 
 
 def device_tree_levels(leaves: torch.Tensor, cap_height: int) -> List[torch.Tensor]:

@@ -1,8 +1,11 @@
-"""STARK prover with host Fiat-Shamir: device stages between challenger squeezes.
+"""STARK prover: device stages between Fiat-Shamir squeezes.
 
-Port of `plonky2_bn254_tpu/prover/prove.py` (the host-challenger path).  The
-stages run eagerly on the device of the trace tensor, and every Fiat-Shamir
-challenge is a python int that enters the tensor ops as a scalar:
+Port of `plonky2_bn254_tpu/prover/prove.py`.  The stages run eagerly on the
+device of the trace tensor.  The transcript runs either on the host
+(`Challenger`: each cap and opening pulled, each challenge a python int that
+enters the tensor ops as a scalar) or on the device (`DeviceChallenger`:
+challenges are 0-d tensors, one pull at the end); both flows share the
+stage code and give the same proof:
 
   S1 commit(trace)                 -> coeffs/LDE/Merkle levels/cap
   S2 aux(trace, beta, gamma)       -> LogUp helpers+Z, CTL Z  -> commit
@@ -11,7 +14,8 @@ challenge is a python int that enters the tensor ops as a scalar:
   S5 fri(ldes, openings, alpha)    -> reduced oracle F + fold layers + trees
 
 Commits go through the hand kernels: iNTT (K3), coset LDE (K4) and the
-Merkle sponge (K1); the FRI grind uses K2.
+Merkle sponge (K1); the FRI grind uses K2, and so does every duplex of the
+device challenger, at [1, 12].
 """
 
 from __future__ import annotations
@@ -31,11 +35,12 @@ from ..starks.air import GL, ConstraintConsumer, GLRing
 from ..starks.table import KeyedLookup, Stark
 from ..utils import timing as timing_mod
 from . import constraints as cons
+from . import device_challenger as dcm
 from . import fri as fri_mod
 from .challenger import Challenger
 from .config import StarkConfig
 from .merkle import device_tree_levels, gather_paths_dev
-from .poly_batch import bit_rev_perm, leaf_rows
+from .poly_batch import bit_rev_perm, bit_rev_perm_dev, leaf_rows
 
 # Rows of the LDE coset per quotient chunk: bounds the plain-torch
 # temporaries of the constraint evaluation.
@@ -48,9 +53,10 @@ def _dev_vec(values, device) -> torch.Tensor:
                            device)
 
 
-def ext_scale(v: Ext, k: GLExt) -> Ext:
-    """Ext tensor times a scalar extension value."""
-    k1w = 7 * k.c1 % gl.P
+def ext_scale(v: Ext, k) -> Ext:
+    """Ext tensor times a scalar extension value: a host `GLExt`, or an
+    `Ext` of 0-d tensors (a device challenge)."""
+    k1w = gl.mul_const(k.c1, 7) if isinstance(k.c1, torch.Tensor) else 7 * k.c1 % gl.P
     return Ext(
         gl.add(gl.mul(v.c0, k.c0), gl.mul(v.c1, k1w)),
         gl.add(gl.mul(v.c0, k.c1), gl.mul(v.c1, k.c0)),
@@ -68,7 +74,7 @@ def _mod_dot(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     return prod[..., 0]
 
 
-def _ext_powers(z: GLExt, n: int, device) -> Ext:
+def _ext_powers(z, n: int, device) -> Ext:
     """[z^0 .. z^{n-1}] by doubling concatenation."""
     pows = Ext.one((1,), device)
     cur = z
@@ -149,7 +155,7 @@ def _make_aux(stark: Stark):
         dev = trace_cols.device
 
         def idx(cols):
-            return torch.tensor(list(cols), dtype=torch.int64, device=dev)
+            return torch.tensor(list(cols), dtype=torch.int64).to(dev, non_blocking=True)
 
         aux = []
         for i in range(len(ctl_weight_specs)):
@@ -257,8 +263,9 @@ def _make_quotient(stark: Stark, n_log: int, config: StarkConfig):
     return quotient_core
 
 
-def _openings(coeffs: torch.Tensor, z: GLExt):
-    """(c0, c1) of f_i(z) for every row of `coeffs`, as numpy u64."""
+def _openings(coeffs: torch.Tensor, z):
+    """[2, k]: (c0, c1) of f_i(z) for every row of `coeffs` ([k, n]); `z` a
+    host `GLExt` or an `Ext` of 0-d tensors."""
     p = _ext_powers(z, coeffs.shape[-1], coeffs.device)
     return torch.stack([_mod_dot(coeffs, p.c0), _mod_dot(coeffs, p.c1)])
 
@@ -268,27 +275,41 @@ def _xs_np(N: int):
     return ntt._coset_powers(N, gl.primitive_root_of_unity(N.bit_length() - 1))
 
 
-def _fri_oracle(lde_batches, alpha_pows_rows, s_zeta, s_zeta_g, zeta, zeta_g, alpha_off):
+def _ext_const(z, device) -> Ext:
+    """A host `GLExt` as an `Ext` of 0-d tensors on `device`; an `Ext` as is."""
+    if isinstance(z, Ext):
+        return z
+    return Ext(torch.full((), gl.i64(z.c0), dtype=torch.int64, device=device),
+               torch.full((), gl.i64(z.c1), dtype=torch.int64, device=device))
+
+
+def _fri_oracle(lde_batches, alpha_pows, s_zeta, s_zeta_g, zeta, zeta_g, alpha_off):
     """F = (S - S(zeta)) / (x - zeta) + alpha^n (S - S(zeta g)) / (x - zeta g)
-    on the LDE coset, with S = sum_j alpha^j f_j."""
+    on the LDE coset, with S = sum_j alpha^j f_j.  `alpha_pows`: [n_polys, 2]
+    rows (c0, c1) of alpha^j (a tensor, or host values); the scalars are host
+    `GLExt`s or `Ext`s of 0-d tensors."""
     dev = lde_batches[0].device
     N = lde_batches[0].shape[-1]
+    if not isinstance(alpha_pows, torch.Tensor):
+        alpha_pows = tensor_from_u64(np.array(alpha_pows, dtype=np.uint64), dev)
+    s_zeta, s_zeta_g, zeta, zeta_g, alpha_off = (
+        _ext_const(z, dev) for z in (s_zeta, s_zeta_g, zeta, zeta_g, alpha_off))
     S0 = torch.zeros(N, dtype=torch.int64, device=dev)
     S1 = torch.zeros(N, dtype=torch.int64, device=dev)
     off = 0
     for lde in lde_batches:
         k = lde.shape[0]
-        ap = tensor_from_u64(np.array(alpha_pows_rows[off : off + k], dtype=np.uint64), dev)
+        ap = alpha_pows[off : off + k]
         # f_j are base-field: (alpha^j * f_j).c0 = p0_j f_j, .c1 = p1_j f_j
         S0 = gl.add(S0, cons.tree_reduce0(gl.mul(lde, ap[:, 0:1])))
         S1 = gl.add(S1, cons.tree_reduce0(gl.mul(lde, ap[:, 1:2])))
         off += k
-    assert off == len(alpha_pows_rows)
+    assert off == alpha_pows.shape[0]
     xs = gl.mul_const(tensor_from_u64(_xs_np(N), dev), gl.MULTIPLICATIVE_GROUP_GENERATOR)
 
-    def reduced(point: GLExt, s_at: GLExt) -> Ext:
+    def reduced(point: Ext, s_at: Ext) -> Ext:
         d0 = gl.sub(xs, point.c0)
-        d1 = torch.full_like(xs, gl.i64((-point.c1) % gl.P))
+        d1 = gl.neg(point.c1).expand_as(xs)
         norm = gl.sub(gl.square(d0), gl.mul_const(gl.square(d1), 7))
         ninv = gl.batch_inv(norm)
         inv_diff = Ext(gl.mul(d0, ninv), gl.mul(gl.neg(d1), ninv))
@@ -346,17 +367,27 @@ def prove(
     ctl_values: Dict[int, List[List[int]]],
     config: StarkConfig,
     timing: "timing_mod.TimingTree" = None,
+    device_fs: bool = None,
 ) -> Proof:
-    """Prove `trace_rows` ([n, width] int64 residues) on its device."""
+    """Prove `trace_rows` ([n, width] int64 residues) on its device.
+
+    `device_fs` keeps the Fiat–Shamir transcript on the device
+    (`_prove_device_fs`); None, the default, means device FS for a trace on
+    CUDA and the host challenger on the CPU, as the reference defaults to
+    its device flow on the accelerator.  Both flows give the same proof.
+    """
     tt = timing_mod.get(timing)
     n, w = trace_rows.shape
     assert w == stark.width
     n_log = n.bit_length() - 1
     assert n == 1 << n_log
     rate = config.rate_bits
-    N = n << rate
     dev = trace_rows.device
     trace_cols = trace_rows.T.contiguous()
+    if device_fs is None:
+        device_fs = dev.type == "cuda"
+    if device_fs:
+        return _prove_device_fs(stark, trace_cols, ctl_values, config, tt)
 
     # ---- S1: trace commit ---------------------------------------------
     with tt.scope("trace commit"):
@@ -418,23 +449,11 @@ def prove(
     zeta_g = zeta.scalar_mul(g)
 
     with tt.scope("openings"):
-        pulled = [
+        openings = _openings_from_rows([
             u64_from_tensor(_openings(coeffs, z))
             for coeffs in (t_coeffs, a_coeffs, q_chunks)
             for z in (zeta, zeta_g)
-        ]
-
-        def mk(r):
-            return [GLExt(int(a), int(b)) for a, b in zip(r[0], r[1])]
-
-        openings = Openings(
-            trace_zeta=mk(pulled[0]),
-            trace_zeta_g=mk(pulled[1]),
-            aux_zeta=mk(pulled[2]),
-            aux_zeta_g=mk(pulled[3]),
-            quotient_zeta=mk(pulled[4]),
-            quotient_zeta_g=mk(pulled[5]),
-        )
+        ])
     del t_coeffs, a_coeffs  # openings done; only LDEs are queried below
     for vals, vals_g in openings.all_polys_order():
         for v in vals:
@@ -476,15 +495,11 @@ def prove(
         idx_np = np.array(query_indices, dtype=np.int64)
         nat = torch.from_numpy(bit_rev_perm(n_log + rate)[idx_np].astype(np.int64)).to(dev)
         idx = torch.from_numpy(idx_np).to(dev)
-        pulled = [
+        query_initials = _per_query([
             (u64_from_tensor(lde[:, nat].T),
              [u64_from_tensor(p) for p in gather_paths_dev(levels, idx)])
             for lde, levels in ((t_lde, t_levels), (a_lde, a_levels), (q_lde, q_levels))
-        ]
-        query_initials = [
-            [(rows[qi], [lvl[qi] for lvl in paths]) for rows, paths in pulled]
-            for qi in range(len(query_indices))
-        ]
+        ], len(query_indices))
 
     return Proof(
         degree_bits=n_log,
@@ -495,5 +510,211 @@ def prove(
         fri=fri_proof,
         query_indices=query_indices,
         query_initials=query_initials,
+        fri_query_layers=fri_query_layers,
+    )
+
+
+def _openings_from_rows(rows) -> Openings:
+    """Openings from six [2, k] host arrays (c0, c1 rows) in transcript
+    order: trace, aux, quotient, each at zeta then zeta * g."""
+
+    def mk(r):
+        return [GLExt(int(a), int(b)) for a, b in zip(r[0], r[1])]
+
+    return Openings(*(mk(r) for r in rows))
+
+
+def _per_query(batches, n_queries: int):
+    """Per query, (row, [sibling per level]) of each (rows [Q, w], paths
+    [height][Q, 4]) batch."""
+    return [
+        [(rows[qi], [lvl[qi] for lvl in paths]) for rows, paths in batches]
+        for qi in range(n_queries)
+    ]
+
+
+# ---------------------------------------------------------------------------
+# device Fiat-Shamir: the transcript transitions and the flow
+# ---------------------------------------------------------------------------
+
+
+def _fs1(ch, stark: Stark, n_log: int, nc: int, cap, ctl_rows):
+    """Absorb the degree and the trace cap; squeeze (beta, gamma) per
+    challenge set; the CTL weights and extra looking totals they give."""
+    ch.observe_element(n_log)
+    ch.observe_cap(cap)
+    pairs = [ch.get_n_challenges(2) for _ in range(nc)]
+    betas = torch.stack([b for b, _ in pairs])
+    gammas = torch.stack([g for _, g in pairs])
+    weights = [dcm.ctl_weights_device(stark, b) for b in betas]
+    return betas, gammas, weights, dcm.ctl_totals_device(ctl_rows, betas, gammas)
+
+
+def _fs2(ch, nc: int, cap):
+    """Absorb the aux cap; squeeze the constraint alphas and their powers."""
+    ch.observe_cap(cap)
+    alphas = torch.stack(ch.get_n_challenges(nc))
+    return alphas, torch.stack([dcm.powers_vec(a, 513) for a in alphas])
+
+
+def _fs3(ch, cap) -> Ext:
+    """Absorb the quotient cap; squeeze zeta."""
+    ch.observe_cap(cap)
+    return Ext(*ch.get_n_challenges(2))
+
+
+def _fs4(ch, opens):
+    """Absorb the six [2, k] opening batches ((c0, c1) per value, transcript
+    order); squeeze the FRI alpha.  Returns its powers [n_polys, 2], the
+    combined openings S(zeta) and S(zeta g) and alpha^n_polys."""
+    for o in opens:
+        ch.observe_flat(o.T.reshape(-1))
+    fa0, fa1 = ch.get_n_challenges(2)
+    n_polys = sum(o.shape[1] for o in opens[0::2])
+    apow = dcm.ext_powers_rows(fa0, fa1, n_polys + 1)
+    a0, a1 = apow[:n_polys, 0], apow[:n_polys, 1]
+
+    def combined(batches) -> Ext:
+        v0, v1 = torch.cat(batches, dim=1)
+        return Ext(cons.tree_reduce0(gl.add(gl.mul(v0, a0), gl.mul_const(gl.mul(v1, a1), 7))),
+                   cons.tree_reduce0(gl.add(gl.mul(v0, a1), gl.mul(v1, a0))))
+
+    return apow[:n_polys], combined(opens[0::2]), combined(opens[1::2]), Ext(*apow[n_polys])
+
+
+def _pull_once(tree):
+    """Every tensor of a nested dict / list / tuple to the host in one
+    device-to-host copy: numpy uint64 arrays, in the same nesting (tuples
+    become lists)."""
+    flat = []
+
+    def collect(x):
+        if isinstance(x, torch.Tensor):
+            flat.append(x)
+        else:
+            for v in (x.values() if isinstance(x, dict) else x):
+                collect(v)
+
+    collect(tree)
+    host = u64_from_tensor(torch.cat([t.reshape(-1).to(torch.int64) for t in flat]))
+    off = 0
+
+    def rebuild(x):
+        nonlocal off
+        if isinstance(x, torch.Tensor):
+            arr = host[off : off + x.numel()].reshape(x.shape)
+            off += x.numel()
+            return arr
+        if isinstance(x, dict):
+            return {k: rebuild(v) for k, v in x.items()}
+        return [rebuild(v) for v in x]
+
+    return rebuild(tree)
+
+
+def _prove_device_fs(stark: Stark, trace_cols: torch.Tensor, ctl_values, config: StarkConfig,
+                     tt) -> Proof:
+    """`prove` with the transcript on the device (`DeviceChallenger`): caps,
+    challenges and openings stay there, the stages follow one another on the
+    device's queue, and the proof reaches the host in one pull at the end;
+    the grind pulls one `found` flag per batch.  The same stage code as the
+    host flow, with 0-d tensors for the challenges, so the same proof."""
+    n_log = trace_cols.shape[1].bit_length() - 1
+    rate = config.rate_bits
+    nc = config.num_challenges
+    dev = trace_cols.device
+    ch = dcm.DeviceChallenger(dev)
+    ctl_rows = [dcm.ctl_rows_device(ctl_values[c], dev) for c in range(len(stark.ctls))]
+    ctl_cols = [
+        torch.tensor([c for c, _ in ctl.flat_weights(1, gl.P)], dtype=torch.int64).to(
+            dev, non_blocking=True)
+        for ctl in stark.ctls
+    ]
+
+    # ---- S1: trace commit + fs1 -----------------------------------------
+    with tt.scope("trace commit"):
+        t_coeffs, t_lde, t_levels = commit_values(trace_cols, config, tt)
+    with tt.scope("fs1"):
+        betas, gammas, weights, totals = _fs1(ch, stark, n_log, nc, t_levels[-1], ctl_rows)
+    ctl_weight_specs = [list(zip(ctl_cols, weights[i])) for i in range(nc)]
+
+    # ---- S2: aux + commit + fs2 -------------------------------------------
+    with tt.scope("aux"):
+        aux_cols = _make_aux(stark)(trace_cols, list(betas), list(gammas), ctl_weight_specs)
+        a_coeffs, a_lde, a_levels = commit_values(aux_cols, config)
+    del aux_cols, trace_cols  # queries read the LDEs, not the values
+    with tt.scope("fs2"):
+        alphas, alpha_pows = _fs2(ch, nc, a_levels[-1])
+
+    # ---- S3: quotient + commit + fs3 --------------------------------------
+    with tt.scope("quotient"):
+        q_chunks = _make_quotient(stark, n_log, config)(
+            t_lde, a_lde, list(alphas), alpha_pows, list(zip(betas, gammas)), totals,
+            [[wt for _, wt in per_ch] for per_ch in ctl_weight_specs],
+        )
+        q_lde, q_levels = commit_coeffs(q_chunks, config)
+    with tt.scope("fs3"):
+        zeta = _fs3(ch, q_levels[-1])
+    g = gl.primitive_root_of_unity(n_log)
+    zeta_g = Ext(gl.mul_const(zeta.c0, g), gl.mul_const(zeta.c1, g))
+
+    # ---- S4: openings + fs4 -----------------------------------------------
+    with tt.scope("openings"):
+        opens = [
+            _openings(coeffs, z)
+            for coeffs in (t_coeffs, a_coeffs, q_chunks)
+            for z in (zeta, zeta_g)
+        ]
+    del t_coeffs, a_coeffs  # openings done; only LDEs are queried below
+    with tt.scope("fs4"):
+        apow, s_zeta, s_zeta_g, alpha_off = _fs4(ch, opens)
+
+    # ---- S5: FRI ------------------------------------------------------------
+    with tt.scope("fri oracle"):
+        F = _fri_oracle([t_lde, a_lde, q_lde], apow, s_zeta, s_zeta_g, zeta, zeta_g, alpha_off)
+    with tt.scope("fri"):
+        res = fri_mod.prove_fri_device(F, n_log, config, ch, timing=tt)
+
+    with tt.scope("query extraction"):
+        q_idx = res["q_idx"]
+        nat = bit_rev_perm_dev(n_log + rate, dev)[q_idx]
+        init = [
+            (lde[:, nat].T, gather_paths_dev(levels, q_idx))
+            for lde, levels in ((t_lde, t_levels), (a_lde, a_levels), (q_lde, q_levels))
+        ]
+
+    # ---- the one pull -------------------------------------------------------
+    with tt.scope("final pull"):
+        host = _pull_once({
+            "caps": [t_levels[-1], a_levels[-1], q_levels[-1]], "opens": opens,
+            "fri_caps": res["caps"], "final": res["final"], "nonce": res["nonce"],
+            "pow_ok": res["pow_ok"], "q_idx": q_idx, "init": init, "layers": res["layers"],
+        })
+    assert bool(host["pow_ok"]), "the device proof-of-work check failed"
+
+    query_indices = [int(v) for v in host["q_idx"]]
+    fc0, fc1 = host["final"]
+    fri_query_layers = [
+        [
+            fri_mod.FriLayerProof(group_values=rows[qi].reshape(1 << a, 2),
+                                  path=[lvl[qi] for lvl in paths])
+            for (rows, paths), (_, _, a) in zip(host["layers"], res["layers_cfg"])
+        ]
+        for qi in range(len(query_indices))
+    ]
+    trace_cap, aux_cap, quotient_cap = host["caps"]
+    return Proof(
+        degree_bits=n_log,
+        trace_cap=trace_cap,
+        aux_cap=aux_cap,
+        quotient_cap=quotient_cap,
+        openings=_openings_from_rows(host["opens"]),
+        fri=fri_mod.FriProof(
+            layer_caps=host["fri_caps"],
+            final_coeffs=[GLExt(int(a), int(b)) for a, b in zip(fc0, fc1)],
+            pow_nonce=int(host["nonce"]),
+        ),
+        query_indices=query_indices,
+        query_initials=_per_query(host["init"], len(query_indices)),
         fri_query_layers=fri_query_layers,
     )

@@ -64,6 +64,24 @@ def test_k2_permute_states(card, n):
     assert torch.equal(poseidon_cuda.permute_states(x), poseidon_cuda.permute_states_plain(x))
 
 
+def test_k2_single_state_in_the_device_challenger(card):
+    """The device challenger's duplex is K2 at [1, 12]: the same squeezes
+    as the host challenger, each permutation one launch of that shape."""
+    from plonky2_bn254_tpu_torch.prover.challenger import Challenger
+    from plonky2_bn254_tpu_torch.prover.device_challenger import DeviceChallenger
+
+    x = _rand((1, 12), card, full_range=True)
+    assert torch.equal(poseidon_cuda.permute_states(x), poseidon_cuda.permute_states_plain(x))
+    xs = np.random.default_rng(8).integers(0, gl.P, size=37, dtype=np.uint64)
+    host, dev = Challenger(), DeviceChallenger(card)
+    kernels.reset_launches()
+    host.observe_elements([int(v) for v in xs])
+    dev.observe_flat(tensor_from_u64(xs, card))
+    got = torch.stack(dev.get_n_challenges(11)).cpu().numpy().view(np.uint64)
+    assert [int(v) for v in got] == host.get_n_challenges(11)
+    assert dict(kernels.CALLS["K2"]) == {(1,): 6}  # 4 chunks, the tail, one more squeeze
+
+
 # Every split of the two-pass plan and the one-pass/two-pass boundary (2^10 /
 # 2^11), at widths 1, 7 and 781 while the plain version fits on the card.
 NTT_SHAPES = [(1, 1), (5, 8), (8192, 16), (13, 1 << 12), (3, 1 << 13), (2, 1 << 15)] + [
@@ -123,6 +141,58 @@ def test_demo_proof_on_card_equals_cpu(card):
     on_cpu = proof_to_fields(prove_mod.prove(demo_stark(), trace, ctl, TEST_CONFIG))
     as_json = lambda f: json.dumps(f, default=lambda v: v.tolist())
     assert as_json(on_card) == as_json(on_cpu)
+
+
+def test_demo_device_fs_proof_on_card_equals_cpu(card):
+    """Both transcripts on the card give the CPU's host-FS proof; the device
+    flow duplexes through K2 at [1, 12]."""
+    from plonky2_bn254_tpu_torch.prover import prove as prove_mod
+    from plonky2_bn254_tpu_torch.prover import verify as verify_mod
+    from plonky2_bn254_tpu_torch.prover.config import TEST_CONFIG
+    from plonky2_bn254_tpu_torch.starks.demo import demo_stark, demo_trace
+
+    trace, ctl = demo_trace(np.random.default_rng(5))
+    as_json = lambda p: json.dumps(proof_to_fields(p), default=lambda v: v.tolist())
+    want = as_json(prove_mod.prove(demo_stark(), trace, ctl, TEST_CONFIG, device_fs=False))
+    kernels.reset_launches()
+    proof = prove_mod.prove(demo_stark(), trace.to(card), ctl, TEST_CONFIG, device_fs=True)
+    assert kernels.CALLS["K2"][(1,)] > 0
+    assert all(kernels.LAUNCHES[k] > 0 for k in kernels.KERNEL_IDS)
+    assert as_json(proof) == want
+    verify_mod.verify(demo_stark(), proof, ctl, TEST_CONFIG)
+    kernels.reset_launches()
+    host = prove_mod.prove(demo_stark(), trace.to(card), ctl, TEST_CONFIG, device_fs=False)
+    assert kernels.CALLS["K2"][(1,)] == 0
+    assert as_json(host) == want
+
+
+def test_map_to_g2_real_backend_on_card(card):
+    """tests/test_hash_to_g2_real.py through the port on the card: the hook
+    proves the two fq_exp Legendre candidates and the blinded g2_scalar_mul
+    cofactor at witness time; the output equals the native mirror."""
+    from plonky2_bn254_tpu_torch.bn254 import oracle
+    from plonky2_bn254_tpu_torch.circuit import builder_ops
+    from plonky2_bn254_tpu_torch.circuit import hash_to_g2 as h2g
+    from plonky2_bn254_tpu_torch.circuit.builder import CircuitBuilder, Witness
+    from plonky2_bn254_tpu_torch.circuit.fq2 import Fq2Target
+    from plonky2_bn254_tpu_torch.prover.config import StarkConfig
+
+    rng = np.random.default_rng(170)
+    uv = (oracle.random_fq(rng), oracle.random_fq(rng))
+    b = CircuitBuilder()
+    hook = builder_ops.get_bn254_hook(b)
+    hook.stark_config = StarkConfig(num_challenges=2, rate_bits=1, cap_height=1,
+                                    proof_of_work_bits=8, num_query_rounds=4, arity_bits=2,
+                                    final_poly_degree_bits=3)
+    u = Fq2Target.new_unchecked(b)
+    out = h2g.map_to_g2_circuit(b, u)
+    pw = Witness()
+    u.set_witness(pw, uv)
+    kernels.reset_launches()
+    values, proofs = b.build().prove(pw, device=card)
+    assert out.get_witness(values) == h2g.map_to_g2(uv)
+    assert {"fq_exp", "g2_scalar_mul"} <= set(proofs["bn254"])
+    assert all(kernels.LAUNCHES[k] > 0 for k in kernels.KERNEL_IDS)
 
 
 @pytest.mark.parametrize("machine", ["fq_exp", "g2_scalar_mul"])

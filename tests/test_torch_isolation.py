@@ -28,8 +28,10 @@ def test_port_imports_no_jax():
     for m in ("fq_mul", "fq_exp", "fq2_alg", "g2_add", "g2_scalar_mul", "rows"):
         assert f"plonky2_bn254_tpu_torch.starks.{m}" in mods, m
     for m in ("builder", "biguint", "fq", "fq2", "curves", "to_u16", "ext_target",
-              "poseidon_gadget", "stark_verifier", "builder_ops", "outer", "msm"):
+              "poseidon_gadget", "stark_verifier", "builder_ops", "outer", "msm", "hash_to_g2"):
         assert f"plonky2_bn254_tpu_torch.circuit.{m}" in mods, m
+    for m in ("field.native", "prover.device_challenger"):
+        assert f"plonky2_bn254_tpu_torch.{m}" in mods, m
     assert "plonky2_bn254_tpu_torch.circuit" in mods
     code = (
         "import importlib, sys\n"
