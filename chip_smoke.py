@@ -6,8 +6,9 @@ Phases (any failure exits non-zero before the result line):
   1. the card: name, power limit and maximum SM clock from nvidia-smi;
   2. build the CUDA kernels from plonky2_bn254_tpu_torch/csrc (nvcc, sm_90a,
      one nvcc a source, all started together), and count the SASS
-     instructions of each Goldilocks operation (bounds.sass_costs): they must
-     equal the fixed costs the bounds use;
+     instructions of each Goldilocks operation (bounds.sass_costs) and
+     measure its latency in cycles (bounds.op_latencies, clock64() chains):
+     they must equal the fixed costs and latencies the bounds use;
   3. the native host Poseidon (csrc/host_poseidon.cpp, g++ at first use):
      permute, hash_no_pad and two_to_one equal their python versions on
      random states and the edge words 0, 1, p - 1, p; verify_path accepts a
@@ -23,11 +24,13 @@ Phases (any failure exits non-zero before the result line):
      transcript on the device (the default on the card), on the host, and
      on the device again (the first proof of a path meets cold tables),
      each with the launch counts set to 0 just before and read just after
-     (every kernel launched; device FS also K2 at [1, 12]), its synchronised
+     (every kernel launched; device FS through K2t, at most 16 transitions,
+     and K2 never at [1, 12]; host FS no K2t), its synchronised
      wall and its synchronising CUDA operations (torch.cuda sync debug
      mode) by site; the proofs equal field by field; the device-FS
-     proof verifies and is rejected with one opening flipped; the wrappers
-     record the shape of every launch (kernels.CALLS);
+     proof verifies and is rejected with one opening flipped; one more
+     host-FS proof under the synchronising timer gives its stage times; the
+     wrappers record the shape of every launch (kernels.CALLS);
   6. the compose path, the circuit API's production product (as
      scripts/prove_compose_default.py and scripts/bench_outer.py define it):
      two fq_exp ops from numpy.random.default_rng(123) recorded on a
@@ -37,10 +40,13 @@ Phases (any failure exits non-zero before the result line):
        witness        the inner FqExp batch proved on the card, self-verified
                       and injected (outputs checked against pow(x, s, P)),
        compile_outer  the 2^20-row universal-gate layout and its verifier key,
-       outer proof    with the launch counts set to 0 just before it and read
-                      just after: every kernel must have launched,
+       outer proof    with the device transcript, the launch counts set to 0
+                      just before it and read just after: every kernel
+                      must have launched, K2 never at [1, 12],
      then verify_all, a corrupted public value and a flipped opening both
-     rejected;
+     rejected; then the outer proof with the host transcript and with the
+     device one again (synchronised walls; equal to the first field by
+     field; K2t launched only with the device transcript);
   7. the h2g phase: hash_to_g2_circuit over 4 inputs from
      numpy.random.default_rng(170), the real backend on the card (the hook
      at the inner config of tests/test_torch_cuda.py's three-kinds test
@@ -52,9 +58,15 @@ Phases (any failure exits non-zero before the result line):
      shape any path launched it with and at a few odd sizes, with
      torch.equal (exact integer arithmetic: the tolerance is zero); the
      kernel timed at each path shape beside its bound (bounds.py), the
-     plain version at the largest and the smallest;
+     plain version at the largest and the smallest; K2t at every
+     transition key (pending words, absorbed words, pending outputs,
+     squeezes) against its plain version run in lockstep over all keys on
+     the CPU copy of the same inputs (its permutations run one after
+     another, ~60 ms each on the card), timed beside its latency bound and,
+     at its most launched key, its plain version;
   9. per path, the stage times and wall of one proof under the
-     synchronising timer and its peak device memory.
+     synchronising timer and its peak device memory; on the machine paths
+     its stages beside the host-FS proof's of phase 5.
 
 Prints each phase's seconds, a JSON line for the native library and per
 path ("path": both flows' walls, synchronising operations and launches,
@@ -65,6 +77,7 @@ path under "shapes"), then the card line, then
 """
 
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -83,12 +96,16 @@ COMPOSE_OPS = 2
 TABLE_BITS = 16
 H2G_SEED = 170
 H2G_INPUTS = 4
+MAX_TRANSITIONS = 16  # K2t launches a device-FS machine proof may take
 
 KERNELS = {
     "K1": ("hash_leaves", "plonky2_bn254_tpu_torch/csrc/poseidon.cu",
            "plonky2_bn254_tpu/field/poseidon_pallas.py:385"),
     "K2": ("permute_states", "plonky2_bn254_tpu_torch/csrc/poseidon.cu",
            "plonky2_bn254_tpu/field/poseidon_pallas.py:457"),
+    # K2's transcript use, redesigned: one launch per transition
+    "K2t": ("sponge_transition", "plonky2_bn254_tpu_torch/csrc/poseidon.cu",
+            "plonky2_bn254_tpu/field/poseidon_pallas.py:457"),
     "K3": ("intt", "plonky2_bn254_tpu_torch/csrc/ntt.cu",
            "plonky2_bn254_tpu/field/ntt_pallas.py:170"),
     "K4": ("coset_lde", "plonky2_bn254_tpu_torch/csrc/ntt.cu",
@@ -125,9 +142,11 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return (int((diff ^ flip).max()) ^ flip) % (1 << 64)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of `fn` over `reps` runs, after one warm-up run."""
-    fn()
+def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
+    """Mean device time of `fn` over `reps` runs, after one warm-up run
+    (warm_up=False: the caller just ran it)."""
+    if warm_up:
+        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
@@ -239,6 +258,10 @@ def kernel_call(kid: str, key: tuple):
 ODD_KEYS = {
     "K1": [(1, 781), (5, 13), (3, 0)],
     "K2": [(1,)],
+    # (pending, absorbed, pending outputs, squeezes): pending 0 and 7, an
+    # empty absorb, squeeze-only, more than 8 squeezes, a 9,000-word absorb
+    "K2t": [(0, 0, 0, 1), (7, 0, 0, 2), (7, 1, 0, 1), (0, 0, 5, 3), (0, 0, 5, 12),
+            (2, 0, 0, 0), (0, 9000, 0, 1)],
     "K3": [(5, 8, 8, True), (13, 1 << 12, 1 << 12, True), (3, 1 << 20, 1 << 20, True),
            (1, 1, 1, True), (7, 1 << 17, 1 << 17, False)],
     "K4": [(5, 8, 16, False), (1, 1, 2, False), (7, 1 << 12, 1 << 14, False),
@@ -246,15 +269,118 @@ ODD_KEYS = {
 }
 
 
+def k2t_inputs(rng, key: tuple, device) -> tuple:
+    """(state, pending words, vectors) of one K2t launch key: the absorbed
+    words as three device vectors, one of them empty, with two words passed
+    by value between them where there are enough."""
+    from plonky2_bn254_tpu_torch.interop import u64_from_tensor
+
+    n_pending, n_words, _, _ = key
+    state = rand_residues(rng, (12,), device)
+    pending = rand_residues(rng, (n_pending,), device) if n_pending else None
+    words = rand_residues(rng, (n_words,), device)
+    cut = n_words // 3
+    by_value = [int(v) for v in u64_from_tensor(words[cut : cut + 2])]
+    return state, pending, [words[:cut], words[:0], *by_value, words[cut + 2 :]]
+
+
+def k2t_plain_lockstep(states, streams, n_outs, n_squeezes) -> tuple:
+    """K2t's plain version in lockstep over all keys on the CPU (numpy in
+    and out, for a worker process): (per key [state, leftover, outputs],
+    seconds)."""
+    from plonky2_bn254_tpu_torch.field import poseidon_cuda as pc
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = pc.sponge_transitions_plain(torch.from_numpy(states), [torch.from_numpy(w) for w in streams],
+                                      n_outs, n_squeezes)
+    return [[t.numpy() for t in row] for row in out], time.perf_counter() - t0
+
+
+def start_k2t(device, calls_by_path: dict, sms: int, clock_mhz: float, pool):
+    """K2t at every transition key any path recorded and at ODD_KEYS: the
+    kernel's results, its plain version in lockstep over all keys on the
+    CPU copy of the same inputs handed to `pool` (it runs while the other
+    kernels are compared), each path key timed beside its latency bound
+    (bounds.py), the plain version on the card at the most launched.
+    Returns the check that waits for the plain results and compares."""
+    from plonky2_bn254_tpu_torch import bounds
+    from plonky2_bn254_tpu_torch.field import poseidon_cuda as pc
+
+    rng = np.random.default_rng(SEED)
+    calls = Counter()
+    for per_path in calls_by_path.values():
+        calls.update(per_path["K2t"])
+    timed = sorted(calls, key=lambda k: bounds.sponge_transition_work(k)[2], reverse=True)
+    keys = timed + [k for k in ODD_KEYS["K2t"] if k not in calls]
+    inputs = [k2t_inputs(rng, key, device) for key in keys]
+    got = [[t.cpu() for t in pc.sponge_transition(st, pe, vs, key[3], key[2])]
+           for key, (st, pe, vs) in zip(keys, inputs)]
+    on_cpu = lambda vs: [v.cpu() if isinstance(v, torch.Tensor) else v for v in vs]
+    pending = pool.apply_async(k2t_plain_lockstep, (
+        torch.stack([st.cpu() for st, _, _ in inputs]).numpy(),
+        [pc.stream_words(None if pe is None else pe.cpu(), on_cpu(vs), "cpu").numpy()
+         for _, pe, vs in inputs],
+        [k[2] for k in keys], [k[3] for k in keys]))
+
+    launched = lambda k: sum(calls_by_path[p]["K2t"].get(k, 0) for p in calls_by_path)
+    main_key = max(timed, key=lambda k: (launched(k), bounds.sponge_transition_work(k)[2]))
+    chain = bounds.permutation_latency()
+    rows, main = [], None
+    for key, (st, pe, vs) in zip(timed, inputs):
+        ops, nbytes, perms, chain_cycles = bounds.sponge_transition_work(key)
+        ms = cuda_ms(lambda: pc.sponge_transition(st, pe, vs, key[3], key[2]), reps=10)
+        plain_ms = (cuda_ms(lambda: pc.sponge_transition_plain(st, pe, vs, key[3], key[2]), reps=1)
+                    if key == main_key else None)
+        bound, bound_by = bounds.bound_ms(ops, nbytes, sms, clock_mhz, chain_cycles)
+        per_path = {p: calls_by_path[p]["K2t"].get(key, 0) for p in calls_by_path}
+        row = {"key": list(key), "launches": per_path, "perms": perms, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": bound_by, "share": bound / ms,
+               "us_per_perm": 1e3 * ms / perms if perms else None}
+        rows.append(row)
+        main = row if key == main_key else main
+        log(f"  K2t {key} x{launched(key)}: {perms} permutations, kernel {ms:.4f} ms"
+            + (f" ({row['us_per_perm']:.2f} us a permutation)" if perms else "")
+            + f", latency bound {bound:.4f} ms, share {bound / ms:.3f}"
+            + (f", plain {plain_ms:.3f} ms" if plain_ms is not None else ""))
+
+    def check() -> dict:
+        want, plain_s = pending.get(timeout=900)
+        err = 0
+        for key, g, w in zip(keys, got, want):
+            g, w = torch.cat(g), torch.cat([torch.from_numpy(t) for t in w])
+            err = max(err, max_abs_err(g, w))
+            if not torch.equal(g, w):
+                raise AssertionError(f"K2t {key}: {int((g != w).sum())} words differ from the plain version")
+        log(f"  K2t: equal to plain at {len(timed)} path and {len(keys) - len(timed)} odd keys, "
+            f"max_abs_err {err} (plain in lockstep on the CPU, in a worker process: {plain_s:.1f} s)")
+        return {"max_abs_err": err, "timed": rows, "main": main, "plain_lockstep_s": plain_s,
+                "permutation_latency_cycles": chain}
+
+    return check
+
+
 def compare_kernels(device, calls_by_path: dict, sms: int, clock_mhz: float) -> dict:
     """Each kernel vs its plain version on the card at every key any path
     launched it with (timed, beside the bound of bounds.py) and at
     ODD_KEYS.  Raises on the first disagreement."""
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        k2t_check = start_k2t(device, calls_by_path, sms, clock_mhz, pool)
+        results = compare_k1_to_k4(device, calls_by_path, sms, clock_mhz)
+        results["K2t"] = k2t_check()
+    return results
+
+
+def compare_k1_to_k4(device, calls_by_path: dict, sms: int, clock_mhz: float) -> dict:
+    """K1-K4 against their plain versions on the card (see compare_kernels)."""
     from plonky2_bn254_tpu_torch import bounds
 
     rng = np.random.default_rng(SEED)
     results = {}
     for kid, odd in ODD_KEYS.items():
+        if kid == "K2t":
+            continue
         calls = Counter()
         for per_path in calls_by_path.values():
             calls.update(per_path[kid])
@@ -264,7 +390,7 @@ def compare_kernels(device, calls_by_path: dict, sms: int, clock_mhz: float) -> 
             kern, plain, work, shape = kernel_call(kid, key)
             x = rand_residues(rng, shape, device)
             got = kern(x)
-            want = plain(x)
+            want = plain(x)  # also the warm-up of the plain timing below
             torch.cuda.synchronize()
             err = max(err, max_abs_err(got, want))
             if not torch.equal(got, want):
@@ -273,7 +399,7 @@ def compare_kernels(device, calls_by_path: dict, sms: int, clock_mhz: float) -> 
             del got, want
             if i < len(timed):
                 ms = cuda_ms(lambda: kern(x), reps=20)
-                plain_ms = (cuda_ms(lambda: plain(x), reps=1)
+                plain_ms = (cuda_ms(lambda: plain(x), reps=1, warm_up=False)
                             if i in (0, len(timed) - 1) else None)
                 bound, bound_by = bounds.bound_ms(*work, sms, clock_mhz)
                 per_path = {p: calls_by_path[p][kid].get(key, 0) for p in calls_by_path}
@@ -370,8 +496,9 @@ def flow_run(path: Path, trace, device_fs: bool):
     """One proof of `trace` in one Fiat–Shamir flow, with the launch counts
     set to 0 just before and read just after: (proof, record) with its
     synchronised wall, its synchronising operations by site and its
-    launches; fails unless every kernel launched (and, for device FS, K2 at
-    [1, 12], the device challenger's duplex)."""
+    launches; fails unless every kernel launched (K2t, the device
+    transcript's transitions, only in the device flow, at most
+    MAX_TRANSITIONS times) and K2 never at [1, 12]."""
     from plonky2_bn254_tpu_torch import kernels
 
     flow = "device FS" if device_fs else "host FS"
@@ -388,22 +515,41 @@ def flow_run(path: Path, trace, device_fs: bool):
     peak = gb(torch.cuda.max_memory_allocated(path.device))
     log(f"  {flow}: synchronised wall {wall:.3f} s; {sum(sites.values())} synchronising "
         f"operations {dict(sites.most_common())}; launches {launches}, K2 at [1, 12] "
-        f"{k2_single}; peak device memory {peak:.2f} GB")
-    missing = [k for k in kernels.KERNEL_IDS if launches[k] <= 0]
-    if device_fs and k2_single <= 0:
-        missing.append("K2 at [1, 12]")
+        f"{k2_single}, K2t {launches['K2t']}; peak device memory {peak:.2f} GB")
+    missing = [k for k in kernels.KERNEL_IDS if launches[k] <= 0 and (device_fs or k != "K2t")]
     if missing:
         raise AssertionError(f"path {path.name} ({flow}) never launched {missing}")
+    if k2_single or (launches["K2t"] > MAX_TRANSITIONS if device_fs else launches["K2t"]):
+        raise AssertionError(f"path {path.name} ({flow}): K2 at [1, 12] {k2_single} times, "
+                             f"K2t {launches['K2t']} times")
     return proof, {"wall_s": wall, "syncs": sum(sites.values()), "sync_sites": dict(sites),
-                   "launches": launches, "k2_single_launches": k2_single, "peak_gb": peak,
-                   "calls": calls}
+                   "launches": launches, "k2_single_launches": k2_single,
+                   "k2t_launches": launches["K2t"], "peak_gb": peak, "calls": calls}
+
+
+def flow_stages(path: Path, trace, device_fs: bool) -> dict:
+    """Top-level stage times of one proof of `trace` in one Fiat–Shamir
+    flow under the synchronising timer (the host flow's transcript work
+    falls between its stages; the device flow's is in fs1-fs4), with
+    "proof" the whole proof."""
+    from plonky2_bn254_tpu_torch.utils.timing import TimingTree
+
+    tt = TimingTree(enabled=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path.prove_trace(trace, tt, device_fs=device_fs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {**{stage: secs for depth, stage, secs in tt.records if depth == 0}, "proof": wall}
 
 
 def first_proof(path: Path) -> dict:
     """Trace the path's inputs once; prove the trace with the transcript on
     the device (the default on the card), on the host and on the device
-    again; the proofs equal field by field; the device-FS proof verifies,
-    and is rejected with one opening flipped."""
+    again; the proofs equal field by field; the stages of one more host-FS
+    proof under the synchronising timer (phase 9 sets them beside the
+    device flow's); the device-FS proof verifies, and is rejected with one
+    opening flipped."""
     from plonky2_bn254_tpu_torch.field.extension import GLExt
     from plonky2_bn254_tpu_torch.interop import proof_to_fields
     from plonky2_bn254_tpu_torch.prover import verify as verify_mod
@@ -422,6 +568,7 @@ def first_proof(path: Path) -> dict:
     if not as_json(dev_proof) == as_json(host_proof) == as_json(warm_proof):
         raise AssertionError(f"path {path.name}: the device-FS proof differs from the host-FS proof")
     log("  device-FS proofs equal the host-FS proof field by field")
+    host_stages = flow_stages(path, trace, device_fs=False)
 
     t0 = time.perf_counter()
     path.verify(dev_proof)
@@ -434,7 +581,7 @@ def first_proof(path: Path) -> dict:
         log(f"  tampered proof rejected: {e}")
     else:
         raise AssertionError(f"path {path.name}: a proof with a flipped opening was accepted")
-    return {"trace_gen_s": trace_s, "verify_s": verify_s,
+    return {"trace_gen_s": trace_s, "verify_s": verify_s, "host_fs_stages_s": host_stages,
             "device_fs": {k: v for k, v in dev_run.items() if k != "calls"},
             "host_fs": {k: v for k, v in host_run.items() if k != "calls"},
             "device_fs_again": {k: v for k, v in warm_run.items() if k != "calls"},
@@ -494,8 +641,12 @@ class Compose:
         for out_t, want in self.outs:
             if out_t.get_witness(self.values) != want:
                 raise AssertionError("compose: an fq_exp output differs from pow(x, s, P)")
+        k2_single, k2t = calls["K2"].get((1,), 0), kernels.LAUNCHES["K2t"]
         log(f"  witness {witness_s:.2f} s (inner FqExp proof on the card + self-verify + "
-            f"fixpoint); " + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items()))
+            f"fixpoint); " + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items())
+            + f"; K2 at [1, 12] {k2_single}, K2t {k2t}")
+        if k2_single or not 0 < k2t <= MAX_TRANSITIONS:
+            raise AssertionError(f"compose witness: K2 at [1, 12] {k2_single} times, K2t {k2t}")
         log(f"  outputs equal pow(x, s, P) for all {COMPOSE_OPS} ops")
         return {"witness_s": witness_s, "witness_stages_s": stages, "witness_calls": calls}
 
@@ -523,6 +674,17 @@ class Compose:
         self.publics = publics
         return proof
 
+    def prove_with(self, device_fs: bool):
+        """The outer proof as prove_outer makes it, with the transcript
+        chosen: the outer trace, then prove."""
+        from plonky2_bn254_tpu_torch.circuit import outer
+        from plonky2_bn254_tpu_torch.prover import prove as prove_mod
+        from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG
+
+        trace, _, ctl_values = outer.build_outer_trace(self.data, self.values)
+        return prove_mod.prove(self.data.stark, trace, ctl_values, DEFAULT_CONFIG,
+                               device_fs=device_fs)
+
     def verify(self, proof, publics):
         from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG
 
@@ -532,7 +694,9 @@ class Compose:
 def compose_first_proof(path: Compose) -> dict:
     """build -> witness -> compile_outer -> the first outer proof (launch
     counts set to 0 just before it and read just after) -> verify_all, and
-    a corrupted public value and a flipped opening rejected."""
+    a corrupted public value and a flipped opening rejected; then the outer
+    proof with the host transcript and with the device one again, both
+    equal to the first field by field, each with its synchronised wall."""
     from plonky2_bn254_tpu_torch import interop, kernels
     from plonky2_bn254_tpu_torch.field.extension import GLExt
     from plonky2_bn254_tpu_torch.prover import verify as verify_mod
@@ -549,11 +713,15 @@ def compose_first_proof(path: Compose) -> dict:
     launches = dict(kernels.LAUNCHES)
     calls = {k: dict(kernels.CALLS[k]) for k in kernels.KERNEL_IDS}
     peak = gb(torch.cuda.max_memory_allocated(path.device))
-    log(f"  first outer proof {prove_s:.2f} s; launches {launches}; peak device memory "
-        f"{peak:.2f} GB")
+    k2_single = calls["K2"].get((1,), 0)
+    log(f"  first outer proof {prove_s:.2f} s (device transcript); launches {launches}, "
+        f"K2 at [1, 12] {k2_single}, K2t {launches['K2t']}; peak device memory {peak:.2f} GB")
     missing = [k for k in kernels.KERNEL_IDS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"path compose never launched {missing} on the outer proof")
+    if k2_single or launches["K2t"] > MAX_TRANSITIONS:
+        raise AssertionError(f"compose outer proof: K2 at [1, 12] {k2_single} times, "
+                             f"K2t {launches['K2t']}")
 
     statement = sum(v << (32 * i) for i, v in enumerate(path.publics))
     if statement != path.outs[0][1]:
@@ -574,8 +742,25 @@ def compose_first_proof(path: Compose) -> dict:
             log(f"  {what} rejected: {e}")
         else:
             raise AssertionError(f"compose: a proof with a {what} was accepted")
+    fields = json.dumps(interop.proof_to_fields(proof), default=lambda v: v.tolist())
+    walls = {}
+    for flow, device_fs in (("host FS", False), ("device FS again", True)):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        again = path.prove_with(device_fs)
+        torch.cuda.synchronize()
+        walls[flow] = time.perf_counter() - t0
+        k2t = kernels.LAUNCHES["K2t"]
+        log(f"  outer proof, {flow}: {walls[flow]:.2f} s, K2t {k2t}")
+        if json.dumps(interop.proof_to_fields(again), default=lambda v: v.tolist()) != fields:
+            raise AssertionError(f"compose: the outer proof with {flow} differs from the first")
+        if (k2t > 0) != device_fs:
+            raise AssertionError(f"compose: the outer proof with {flow} took {k2t} K2t launches")
+    log(f"  outer proof walls: device FS {prove_s:.2f} s (first), host FS {walls['host FS']:.2f} s, "
+        f"device FS again {walls['device FS again']:.2f} s; the proofs equal field by field")
     res.update({"first_proof_s": prove_s, "verify_s": verify_s, "first_peak_gb": peak,
-                "launches": launches, "calls": calls})
+                "launches": launches, "calls": calls,
+                "host_fs_proof_s": walls["host FS"], "device_fs_again_s": walls["device FS again"]})
     return res
 
 
@@ -656,12 +841,15 @@ def hash_to_g2_phase(device) -> dict:
     missing = [k for k in kernels.KERNEL_IDS if res["launches"][k] <= 0]
     if missing:
         raise AssertionError(f"the h2g phase never launched {missing}")
+    if res["calls"]["K2"].get((1,), 0):
+        raise AssertionError(f"the h2g phase launched K2 at [1, 12] {res['calls']['K2'][(1,)]} times")
     log(f"  {H2G_INPUTS} inputs, {res['targets']:,} targets, build {res['build_s']:.2f} s; "
         f"witness {res['witness_s']:.2f} s ("
         + ", ".join(f"{k} {v:.2f} s" for k, v in res["witness_stages_s"].items())
         + f"); compile_outer {res['compile_outer_s']:.2f} s (2^{data.n_log} x "
         f"{data.lay.width}); outer proof {res['outer_proof_s']:.2f} s; verify_all "
-        f"{res['verify_all_s']:.2f} s; launches {res['launches']}")
+        f"{res['verify_all_s']:.2f} s; launches {res['launches']}, K2 at [1, 12] 0, "
+        f"K2t {res['launches']['K2t']}")
     log("  output = native hash_to_g2(inputs), public and in the witness")
     return res
 
@@ -682,8 +870,14 @@ def synced_proof(path) -> dict:
         log(f"  {'  ' * depth}{secs:8.3f}s  {stage}")
     rate = f" ({N_OPS / wall:.2f} ops/s)" if path.name in PATHS else ""
     log(f"  synchronised proof wall {wall:.3f} s{rate}; peak device memory {peak:.2f} GB")
-    return {"synced_wall_s": wall, "synced_peak_gb": peak,
-            "stages_s": {stage: secs for depth, stage, secs in tt.records if depth == 0}}
+    stages = {stage: secs for depth, stage, secs in tt.records if depth == 0}
+    host = getattr(path, "host_fs_stages", None)
+    if host:
+        dev = {**{k: v for k, v in stages.items() if k != "trace gen"},
+               "proof": wall - stages.get("trace gen", 0.0)}
+        log("  synchronised stages, device FS / host FS (s): " + ", ".join(
+            f"{k} {dev.get(k, 0):.3f} / {host.get(k, 0):.3f}" for k in dict.fromkeys([*dev, *host])))
+    return {"synced_wall_s": wall, "synced_peak_gb": peak, "stages_s": stages}
 
 
 def main() -> int:
@@ -721,6 +915,15 @@ def main() -> int:
     log(f"  SASS of csrc/goldilocks.cuh {costs}; gl::mul opcodes {mul_opcodes}")
     if costs != bounds.OP_COST:
         raise AssertionError(f"SASS op costs {costs} differ from bounds.OP_COST {bounds.OP_COST}")
+    latency, latency_raw = bounds.op_latencies(kernels.BUILD_DIR / "op_probe")
+    log(f"  latency in cycles (clock64 chains of csrc/op_probe.cu) "
+        f"{ {k: round(v, 3) for k, v in latency_raw.items()} }; one permutation's critical path "
+        f"{bounds.permutation_latency()} cycles = "
+        f"{bounds.permutation_latency() / clock_mhz:.3f} us at {clock_mhz:.0f} MHz "
+        f"({bounds.permutation_latency(8)} after a full-rate absorb)")
+    if latency != bounds.OP_LATENCY:
+        raise AssertionError(f"op latencies {latency} differ from bounds.OP_LATENCY "
+                             f"{bounds.OP_LATENCY}")
 
     log("# native host Poseidon (plonky2_bn254_tpu_torch/csrc/host_poseidon.cpp)")
     native = native_check()
@@ -735,6 +938,7 @@ def main() -> int:
         t0 = time.perf_counter()
         paths[name] = Path(name, device)
         runs[name] = first_proof(paths[name])
+        paths[name].host_fs_stages = runs[name]["host_fs_stages_s"]
         phase_done(f"{name} first proof", t0)
 
     t0 = time.perf_counter()
@@ -772,7 +976,7 @@ def main() -> int:
 
     table = {"kernels": []}
     for kid in kernels.KERNEL_IDS:
-        main = kres[kid]["timed"][0]
+        main = kres[kid].get("main") or kres[kid]["timed"][0]
         by_path = {p: runs[p]["launches"][kid] for p in main_paths + ("h2g",)}
         table["kernels"].append({
             "name": f"{kid} {KERNELS[kid][0]}", "route": "cuda", "source": KERNELS[kid][1],
@@ -782,7 +986,11 @@ def main() -> int:
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
             "share": main["share"], "key": main["key"],
-            "shapes": [{k: r[k] for k in ("key", "launches", "ms", "bound_ms", "share")}
+            **({"us_per_perm": main["us_per_perm"],
+                "permutation_latency_cycles": kres[kid]["permutation_latency_cycles"]}
+               if kid == "K2t" else {}),
+            "shapes": [{k: r[k] for k in ("key", "launches", "ms", "bound_ms", "share",
+                                          "us_per_perm") if k in r}
                        for r in kres[kid]["timed"]],
         })
     log(f"# total {time.perf_counter() - t_start:.1f} s")

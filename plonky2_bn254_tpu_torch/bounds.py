@@ -19,6 +19,13 @@ algorithm and the shapes, not from the kernels:
 `csrc/op_probe.cu` (one operation per kernel, less the baseline's
 instructions).  Building and disassembling need nvcc and cuobjdump;
 importing this module needs neither.
+
+K2t (one transcript transition, `poseidon_cuda.sponge_transition`) is a
+chain of m dependent permutations, so the throughput bound says little: its
+bound is also at least the critical path of that chain in its cheapest form
+(`transition_latency`), each dependent operation at the latency in cycles
+that `op_latencies` measures (clock64() chains of `csrc/op_probe.cu`),
+pinned in `OP_LATENCY`, at the card's maximum SM clock.
 """
 
 from __future__ import annotations
@@ -40,6 +47,16 @@ OP_COST = {
     "sub": 5,  # gl::sub
     "reduce": 19,  # gl::reduce128 of a 128-bit sum
     "small_mul": 8,  # word times a 32-bit constant into two 64-bit sums (MDS)
+}
+
+# Cycles from a dependent operation's input to its output (sm_90a, nvcc 12):
+# the clock64() chains of csrc/op_probe.cu, read by `op_latencies`.
+OP_LATENCY = {
+    "add": 37,  # gl::add
+    "mul": 101,  # gl::mul
+    "reduce": 57,  # gl::reduce128
+    "small_mul": 10,  # one multiply-accumulate step of the MDS sum
+    "sum_add": 2,  # one add of two 64-bit partial sums of the MDS sum
 }
 
 # Poseidon (width 12, rate 8): 8 full and 22 partial rounds, S-box x^7 in 4
@@ -64,6 +81,77 @@ def permutation_ops() -> int:
     first = t * c["add"] + (t - 1) ** 2 * c["mul"] + (t - 1) * (t - 2) * c["add"]
     partial = (4 + 2 * t - 1) * c["mul"] + (1 + 2 * (t - 1)) * c["add"]
     return POSEIDON_FULL_ROUNDS * full + first + POSEIDON_PARTIAL_ROUNDS * partial
+
+
+def _sum_finish(ready: list, step: int) -> int:
+    """When a sum of terms ready at the times `ready` can be done at the
+    earliest: add the two terms ready first, again and again, each add
+    `step` cycles (the fastest order for adds of one cost)."""
+    ready = sorted(ready)
+    while len(ready) > 1:
+        a, b = ready.pop(0), ready.pop(0)
+        ready.append(max(a, b) + step)
+        ready.sort()
+    return ready[0]
+
+
+def round_latency(full: bool, early: int = 0) -> int:
+    """Cycles of one round's critical path in the cheapest form known, its
+    words ready at its start with its round constant already added (the
+    first `early` of them long before: words an absorb wrote): in a full
+    round each word's S-box (in a partial one only word 0's), three
+    dependent products (x^2; x^3 and x^4 side by side; x^7); then one MDS
+    row: a small product per word, their sum with the next round's constant
+    (known before the round, so a term ready at once) in the fastest order,
+    and one reduction.  A product whose add into the sum is fused with it
+    (a multiply-accumulate) takes `small_mul` for both, so each product is
+    priced at `small_mul - sum_add` and each add of the sum at `sum_add`,
+    which no order of fused and separate steps beats.  In a partial round
+    the other 11 products are summed while word 0's S-box runs.  (The
+    sparse form of the partial rounds trades the small products for full
+    ones, a longer path, so the dense form is the cheaper here.)"""
+    lat = OP_LATENCY
+    sbox = 3 * lat["mul"]
+    product = lat["small_mul"] - lat["sum_add"]
+    ready = [0] + [0 if e < early else (sbox if full or e == 0 else 0) + product
+                   for e in range(POSEIDON_WIDTH)]
+    return _sum_finish(ready, lat["sum_add"]) + lat["reduce"]
+
+
+def permutation_latency(early: int = 0) -> int:
+    """Cycles of one permutation's critical path inside a chain, the first
+    `early` words written by the absorb before it: every round in sequence,
+    round 0's constant folded into the previous permutation's last MDS sum
+    (or, for a word the absorb writes, added to the input word off the
+    path)."""
+    return (round_latency(True, early) + (POSEIDON_FULL_ROUNDS - 1) * round_latency(True)
+            + POSEIDON_PARTIAL_ROUNDS * round_latency(False))
+
+
+def transition_latency(written: list) -> int:
+    """Cycles of the critical path of a chain of permutations, `written[i]`
+    the words the absorb writes over state[:8] before permutation i
+    (`sponge_schedule`): the first one's round-0 constant add, which
+    nothing before it can take, and its path with every word read at the
+    start, then each later permutation's path."""
+    if not written:
+        return 0
+    return (OP_LATENCY["add"] + permutation_latency()
+            + sum(permutation_latency(w) for w in written[1:]))
+
+
+def sponge_transition_work(key: tuple) -> tuple:
+    """(ops, bytes, permutations, critical path in cycles) of K2t at its
+    launch key (pending words, absorbed words, pending outputs, squeezes):
+    the permutations of the duplex schedule, the input words and state
+    read, the new state, leftover words and outputs written."""
+    from .field.poseidon_cuda import sponge_schedule
+
+    n_pending, n_words, n_out, n_squeeze = key
+    perms, fill, _, _ = sponge_schedule(n_pending + n_words, n_out, n_squeeze)
+    nbytes = 8 * (POSEIDON_WIDTH + n_pending + n_words) + 8 * (POSEIDON_WIDTH + fill + n_squeeze)
+    chain = transition_latency([count for _, count in perms])
+    return len(perms) * permutation_ops(), nbytes, len(perms), chain
 
 
 def hash_leaves_work(n: int, w: int) -> tuple:
@@ -110,9 +198,12 @@ def coset_lde_work(w: int, n: int, rate_bits: int) -> tuple:
     return w * ops, 8 * w * n + 8 * w * (n << rate_bits)
 
 
-def bound_ms(ops: int, nbytes: int, sms: int, clock_mhz: float) -> tuple:
-    """(bound in ms, "operations" or "bytes")."""
-    t_ops = ops / (INT32_OPS_PER_CLK_PER_SM * sms * clock_mhz * 1e6)
+def bound_ms(ops: int, nbytes: int, sms: int, clock_mhz: float, chain_cycles: int = 0) -> tuple:
+    """(bound in ms, "operations" or "bytes").  `chain_cycles`: the critical
+    path of operations that depend on one another (K2t), which bounds them
+    from below at the clock as the issue rate does."""
+    t_ops = max(ops / (INT32_OPS_PER_CLK_PER_SM * sms * clock_mhz * 1e6),
+                chain_cycles / (clock_mhz * 1e6))
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
 
@@ -141,5 +232,42 @@ def sass_costs(out_dir: pathlib.Path) -> tuple:
             current[ins.group(2)] += 1
     base = sum(opcodes["probe_xor"].values())
     costs = {name[len("probe_"):]: sum(c.values()) - base + 2
-             for name, c in opcodes.items() if name != "probe_xor"}
+             for name, c in opcodes.items() if name.startswith("probe_") and name != "probe_xor"}
     return costs, dict(opcodes["probe_mul"])
+
+
+LATENCY_OPS = ("add", "mul", "reduce", "small_mul", "sum_add")  # the order of p2_op_latencies
+
+
+def probe_library(out_dir: pathlib.Path):
+    """`csrc/op_probe.cu` built as a library into `out_dir` (ctypes)."""
+    import ctypes
+
+    out_dir = out_dir.resolve()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / "libopprobe.so"
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(so),
+                    str(kernels.CSRC / "op_probe.cu")],
+                   check=True, capture_output=True, text=True, cwd=str(kernels.CSRC))
+    return ctypes.CDLL(str(so))
+
+
+def op_latencies(out_dir: pathlib.Path) -> tuple:
+    """(cycles per dependent step of each operation, rounded; unrounded)
+    from the clock64() chains of `csrc/op_probe.cu`, built as a library
+    and run on the current CUDA device: the difference of a 4096-step and
+    a 1024-step chain over 3072."""
+    import ctypes
+
+    import torch
+
+    lib = probe_library(out_dir)
+    lib.p2_op_latencies.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.p2_op_latencies.restype = ctypes.c_int
+    n = len(LATENCY_OPS)
+    scratch = torch.zeros(2 + 2 * n, dtype=torch.int64, device="cuda")
+    scratch[0], scratch[1] = 0x0123456789ABCDEF, 0x00000000FEDCBA98
+    cycles = (ctypes.c_longlong * (2 * n))()
+    kernels.check(lib.p2_op_latencies(scratch.data_ptr(), cycles), "op latencies")
+    raw = {op: (cycles[2 * i + 1] - cycles[2 * i]) / 3072 for i, op in enumerate(LATENCY_OPS)}
+    return {op: round(v) for op, v in raw.items()}, raw

@@ -876,9 +876,7 @@ def prove_outer(data: OuterData, values: Dict[int, int], config=None, timing=Non
     tt = timing_mod.get(timing)
     with tt.scope("outer trace"):
         trace, public_values, ctl_values = build_outer_trace(data, values)
-    # the outer proof keeps the host transcript
-    proof = prove_mod.prove(data.stark, trace, ctl_values, config, timing=timing,
-                            device_fs=False)
+    proof = prove_mod.prove(data.stark, trace, ctl_values, config, timing=timing)
     return proof, public_values
 
 

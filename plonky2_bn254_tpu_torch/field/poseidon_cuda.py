@@ -1,20 +1,32 @@
-"""Poseidon kernels K1 (leaf sponge) and K2 (raw permutation) for the H100.
+"""Poseidon kernels K1 (leaf sponge), K2 (raw permutation) and K2t (one
+transcript transition) for the H100.
 
 Port of `plonky2_bn254_tpu/field/poseidon_pallas.py` (`hash_leaves`,
-`permute_states`).  The kernels are `csrc/poseidon.cu`; the plain versions
-beside them are the tensor Poseidon of `poseidon.py`.  A wrapper takes the
-plain path only for a CPU tensor; for a CUDA tensor it launches its kernel
-or raises.
+`permute_states`); K2t runs the device Fiat–Shamir transcript
+(`prover/device_challenger.py`), where the reference runs its XLA
+permutation.  The kernels are `csrc/poseidon.cu`; the plain versions beside
+them are the tensor Poseidon of `poseidon.py`.  A wrapper takes the plain
+path only for a CPU tensor; for a CUDA tensor it launches its kernel or
+raises.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import List, Sequence, Union
 
 import numpy as np
 import torch
 
 from .. import kernels
+from . import goldilocks as gl
 from . import poseidon
-from .poseidon_constants import MDS, ROUND_CONSTANTS, WIDTH
+from .poseidon_constants import MDS, ROUND_CONSTANTS, SPONGE_RATE, WIDTH
+
+# The most segments (device vectors and runs of words passed by value) and
+# by-value words one K2t launch takes (csrc/poseidon.cu K2T_MAX_SEGS / _IMM).
+MAX_SEGMENTS = 32
+MAX_IMMEDIATE = 32
 
 _INITIALIZED = set()
 
@@ -80,3 +92,154 @@ def permute_states(states: torch.Tensor) -> torch.Tensor:
         )
         kernels.count_launch("K2", (n,))
     return out
+
+
+# ---------------------------------------------------------------------------
+# K2t: one transcript transition
+# ---------------------------------------------------------------------------
+
+
+def sponge_schedule(n_words: int, n_out: int, n_squeeze: int) -> tuple:
+    """The duplex schedule of one transition of plonky2's sponge: absorb
+    `n_words` words after the last permutation (words already buffered
+    count among them) with `n_out` outputs pending, then squeeze
+    `n_squeeze`.  Every 8th word permutes; any word drops the pending
+    outputs; a squeeze duplexes when input is buffered or no output is left.
+    Returns (the permutations, each as (first stream word, words written
+    over state[:8]); leftover input words; outputs left; the squeezes, each
+    as (permutations before it, state word))."""
+    perms = [(SPONGE_RATE * c, SPONGE_RATE) for c in range(n_words // SPONGE_RATE)]
+    fill = n_words % SPONGE_RATE
+    if n_words:
+        n_out = SPONGE_RATE if perms and not fill else 0
+    outs = []
+    for _ in range(n_squeeze):
+        if fill or not n_out:
+            perms.append((n_words - fill, fill))
+            fill, n_out = 0, SPONGE_RATE
+        n_out -= 1
+        outs.append((len(perms), n_out))
+    return perms, fill, n_out, outs
+
+
+Word = Union[torch.Tensor, int]
+
+
+def stream_words(pending, vectors: Sequence[Word], device) -> torch.Tensor:
+    """The words of one transition as one 1-D tensor: `pending`, then each
+    vector, python ints as words."""
+    parts = [] if pending is None else [pending.reshape(-1)]
+    for v in vectors:
+        if isinstance(v, torch.Tensor):
+            parts.append(v.reshape(-1))
+        else:
+            parts.append(torch.full((1,), gl.i64(int(v)), dtype=torch.int64, device=device))
+    if not parts:
+        return torch.zeros(0, dtype=torch.int64, device=device)
+    return torch.cat(parts)
+
+
+def sponge_transitions_plain(states: torch.Tensor, streams: List[torch.Tensor],
+                             n_outs: Sequence[int], n_squeezes: Sequence[int]) -> list:
+    """Plain version of K2t on a batch of transitions in lockstep: row b of
+    `states` ([B, 12]) absorbs `streams[b]` with `n_outs[b]` outputs
+    pending, then squeezes `n_squeezes[b]`; each step is one
+    `poseidon.permute` of [B, 12], rows past their schedule kept.  Returns
+    per row (state [12], leftover words [fill], outputs [k])."""
+    dev = states.device
+    B = states.shape[0]
+    plans = [sponge_schedule(int(w.shape[0]), o, k) for w, o, k in zip(streams, n_outs, n_squeezes)]
+    steps = max([len(plan[0]) for plan in plans] + [0])
+    width = max([int(w.shape[0]) for w in streams] + [0]) + SPONGE_RATE
+    words = torch.zeros((B, width), dtype=torch.int64, device=dev)
+    for b, w in enumerate(streams):
+        words[b, : w.shape[0]] = w
+    idx = np.zeros((steps, B, SPONGE_RATE), dtype=np.int64)
+    take = np.zeros((steps, B, SPONGE_RATE), dtype=bool)
+    live = np.zeros((steps, B, 1), dtype=bool)
+    for b, plan in enumerate(plans):
+        for t, (start, count) in enumerate(plan[0]):
+            idx[t, b] = start + np.arange(SPONGE_RATE)
+            take[t, b, :count] = True
+            live[t, b] = True
+    idx, take, live = (torch.from_numpy(a).to(dev) for a in (idx, take, live))
+    snaps = [states]
+    for t in range(steps):
+        head = torch.where(take[t], words.gather(1, idx[t]), states[:, :SPONGE_RATE])
+        new = poseidon.permute(torch.cat([head, states[:, SPONGE_RATE:]], dim=1))
+        states = torch.where(live[t], new, states)
+        snaps.append(states)
+    snaps = torch.stack(snaps)
+    out = []
+    for b, (w, (_, fill, _, outs)) in enumerate(zip(streams, plans)):
+        n = int(w.shape[0])
+        if outs:
+            at = torch.tensor([t for t, _ in outs], device=dev)
+            pos = torch.tensor([j for _, j in outs], device=dev)
+            outputs = snaps[at, b, pos]
+        else:
+            outputs = states.new_zeros(0)
+        out.append((states[b], words[b, n - fill : n], outputs))
+    return out
+
+
+def sponge_transition_plain(state: torch.Tensor, pending, vectors: Sequence[Word],
+                            n_squeeze: int, n_out: int = 0) -> tuple:
+    """Plain version of K2t: one transition, one `poseidon.permute` of
+    [1, 12] per duplex.  See `sponge_transition`."""
+    words = stream_words(pending, vectors, state.device)
+    return sponge_transitions_plain(state[None], [words], [n_out], [n_squeeze])[0]
+
+
+def sponge_transition(state: torch.Tensor, pending, vectors: Sequence[Word], n_squeeze: int,
+                      n_out: int = 0) -> tuple:
+    """One transcript transition (K2t).  `state`: the [12] sponge state;
+    `pending`: the 1-D words absorbed since its last permutation (or None);
+    `vectors`: 1-D tensors and python ints (words passed by value), absorbed
+    in order after them; `n_out`: the outputs pending, state[:n_out]; then
+    `n_squeeze` squeezes.  Returns (new state [12], leftover input words
+    [fill], the outputs [n_squeeze]), views of one new tensor."""
+    if kernels.is_plain(state):
+        return sponge_transition_plain(state, pending, vectors, n_squeeze, n_out)
+    kernels.require_cuda_int64(state, "sponge_transition", ndim=1)
+    if state.shape[0] != WIDTH:
+        raise ValueError(f"sponge_transition: expected a state of {WIDTH} words")
+    if not 0 <= n_out <= SPONGE_RATE or n_squeeze < 0:
+        raise ValueError(f"sponge_transition: n_out {n_out}, n_squeeze {n_squeeze}")
+    ptrs, lens, imm = [], [], []
+    n_pending = 0
+    if pending is not None and pending.numel():
+        kernels.require_cuda_int64(pending, "sponge_transition pending", ndim=1)
+        n_pending = int(pending.shape[0])
+        ptrs.append(pending.data_ptr())
+        lens.append(n_pending)
+    for v in vectors:
+        if isinstance(v, torch.Tensor):
+            kernels.require_cuda_int64(v, "sponge_transition vector", ndim=1)
+            if v.device != state.device:
+                raise ValueError(f"sponge_transition: a vector on {v.device}, the state on {state.device}")
+            if v.numel():
+                ptrs.append(v.data_ptr())
+                lens.append(int(v.shape[0]))
+        else:
+            if not ptrs or ptrs[-1] is not None:
+                ptrs.append(None)
+                lens.append(0)
+            lens[-1] += 1
+            imm.append(gl.u64(int(v)))
+    if len(ptrs) > MAX_SEGMENTS or len(imm) > MAX_IMMEDIATE:
+        raise ValueError(f"sponge_transition: {len(ptrs)} segments and {len(imm)} words by value "
+                         f"(at most {MAX_SEGMENTS} and {MAX_IMMEDIATE})")
+    n_words = sum(lens)
+    fill = sponge_schedule(n_words, n_out, n_squeeze)[1]
+    out = torch.empty(WIDTH + SPONGE_RATE + n_squeeze, dtype=torch.int64, device=state.device)
+    lib = _lib(state.device)
+    kernels.check(
+        lib.p2_sponge_transition(
+            state.data_ptr(), out.data_ptr(), (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int64 * len(lens))(*lens), len(lens), (ctypes.c_uint64 * len(imm))(*imm),
+            len(imm), n_out, n_squeeze, kernels.stream_of(state)),
+        "sponge_transition",
+    )
+    kernels.count_launch("K2t", (n_pending, n_words - n_pending, n_out, n_squeeze))
+    return out[:WIDTH], out[WIDTH : WIDTH + fill], out[WIDTH + SPONGE_RATE :]

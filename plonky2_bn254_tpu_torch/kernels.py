@@ -34,8 +34,9 @@ NVCC_FLAGS = (
 )
 _COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared")
 
-# K1 Poseidon leaf sponge, K2 raw permutation, K3 NTT/iNTT, K4 coset LDE.
-KERNEL_IDS = ("K1", "K2", "K3", "K4")
+# K1 Poseidon leaf sponge, K2 raw permutation, K2t one transcript transition
+# (absorb and squeeze on one sponge state), K3 NTT/iNTT, K4 coset LDE.
+KERNEL_IDS = ("K1", "K2", "K2t", "K3", "K4")
 LAUNCHES: Counter = Counter({k: 0 for k in KERNEL_IDS})
 # kernel id -> Counter of the keys its launches were made with (see the wrappers)
 CALLS: dict = {k: Counter() for k in KERNEL_IDS}
@@ -48,6 +49,7 @@ _SIGNATURES = {
     "p2_poseidon_init": (_VP, _VP),
     "p2_hash_leaves": (_VP, _VP, _I64, _I64, _VP),
     "p2_permute_states": (_VP, _VP, _I64, _VP),
+    "p2_sponge_transition": (_VP, _VP, _VP, _VP, _INT, _VP, _INT, _INT, _INT, _VP),
     "p2_ntt_rows": (_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT, _INT, _U64, _VP),
     "p2_ntt_columns": (_VP, _VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT, _INT, _VP),
     "p2_ntt_rows_t": (_VP, _VP, _VP, _I64, _INT, _INT, _INT, _VP),

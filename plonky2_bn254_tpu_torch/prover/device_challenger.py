@@ -7,12 +7,16 @@ same duplex schedule (plonky2 semantics: absorbs buffer up to the rate, then
 permute; any absorb invalidates pending outputs) on an int64 `[12]` state
 tensor on the proof's device, so challenges stay there, the stages follow
 one another on the device's queue, and the proof is pulled once at the end.
-Buffer fill levels are python ints; buffered values are 0-d tensors.
 
-Each duplex is one permutation of a `[1, 12]` state through K2
-(`field/poseidon_cuda.permute_states`), which takes its plain version for a
-CPU tensor, as every wrapper does.  A full-rate chunk of `observe_flat` is
-one permutation, as in the reference.
+As the reference compiles each transcript transition to one executable,
+each transition here is one launch of K2t (`poseidon_cuda.sponge_transition`,
+its plain version for a CPU tensor): absorbs only queue device vectors and
+python ints, and a squeeze, or a read of `.state`, runs everything queued
+and the squeezes in that one launch.  The buffer fill levels are python ints
+kept here (`counts`); the words absorbed since the last permutation stay on
+the device, and the pending outputs are the state's first words.  Tensors
+queued for absorbing must not be written before the next squeeze: the
+launch raises if one was (its version counter moved).
 
 Where the reference differs from the host challenger, this module follows
 the host: absorbing an empty vector changes nothing (the reference clears
@@ -35,15 +39,9 @@ import torch
 
 from ..field import goldilocks as gl
 from ..field import poseidon_cuda
-from ..field.poseidon_constants import SPONGE_RATE as RATE
 from ..field.poseidon_constants import WIDTH
 from ..interop import tensor_from_u64
 from .constraints import tree_reduce0
-
-
-def _permute1(state: torch.Tensor) -> torch.Tensor:
-    """[12] -> [12]: one state through the batched permutation (K2)."""
-    return poseidon_cuda.permute_states(state[None])[0]
 
 
 class DeviceChallenger:
@@ -51,66 +49,96 @@ class DeviceChallenger:
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self.state = torch.zeros(WIDTH, dtype=torch.int64, device=self.device)
-        self.input_buffer: List[torch.Tensor] = []
-        self.output_buffer: List[torch.Tensor] = []
+        self._state = torch.zeros(WIDTH, dtype=torch.int64, device=self.device)
+        self._pending = None  # [n_pending] words absorbed since the last permutation
+        self._n_pending = 0
+        self._n_out = 0  # pending outputs: state[:n_out], popped from the end
+        self._queue: List = []  # 1-D tensors and lists of python ints, in absorb order
+        self._versions: List = []  # (queued tensor, its version when queued)
+        self._n_queued = 0
 
-    def _scalar(self, x) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.reshape(())
-        return torch.full((), gl.i64(int(x)), dtype=torch.int64, device=self.device)
+    @property
+    def state(self) -> torch.Tensor:
+        """The [12] state after the last permutation, everything queued
+        absorbed first (the proof-of-work grind hashes from it)."""
+        if self._queue:
+            self._transition(0)
+        return self._state
+
+    def counts(self) -> tuple:
+        """(input words buffered, outputs pending), as the host challenger's
+        buffer lengths."""
+        n = self._n_pending + self._n_queued
+        if not self._n_queued:
+            return n, self._n_out
+        return poseidon_cuda.sponge_schedule(n, self._n_out, 0)[1:3]
 
     # -- absorbing ---------------------------------------------------------
 
     def observe_element(self, x):
         """x: a canonical field element, python int or 0-d tensor."""
-        self.output_buffer = []
-        self.input_buffer.append(self._scalar(x))
-        if len(self.input_buffer) == RATE:
-            self._duplex()
+        if isinstance(x, torch.Tensor):
+            self._push(x.reshape(1))
+        else:
+            self._push(int(x))
 
     def observe_flat(self, xs: torch.Tensor):
-        """Absorb a 1-D tensor: the partial buffer topped up element by
-        element, then one permutation per full-rate chunk, then the tail."""
-        n = int(xs.shape[0])
-        if n == 0:
-            return
-        self.output_buffer = []
-        fill = min((-len(self.input_buffer)) % RATE, n)
-        for i in range(fill):
-            self.observe_element(xs[i])
-        n_chunks = (n - fill) // RATE
-        for c in range(n_chunks):
-            lo = fill + c * RATE
-            self.state = _permute1(torch.cat([xs[lo : lo + RATE], self.state[RATE:]]))
-        if n_chunks:
-            self.output_buffer = list(self.state[:RATE])
-        for i in range(fill + n_chunks * RATE, n):
-            self.observe_element(xs[i])
+        """Absorb a 1-D tensor (an empty one changes nothing)."""
+        xs = xs.reshape(-1)
+        if xs.shape[0]:
+            self._push(xs.contiguous())
 
     def observe_cap(self, cap: torch.Tensor):
         """cap: [k, 4] digest rows."""
         self.observe_flat(cap.reshape(-1))
 
+    def _push(self, item):
+        ints = not isinstance(item, torch.Tensor)
+        n_imm = sum(len(q) for q in self._queue if isinstance(q, list))
+        segments = len(self._queue) + (self._pending is not None)
+        join = ints and self._queue and isinstance(self._queue[-1], list)
+        if (segments + (not join) > poseidon_cuda.MAX_SEGMENTS
+                or n_imm + ints > poseidon_cuda.MAX_IMMEDIATE):
+            self._transition(0)  # one launch takes this many; absorb what is queued
+            join = False
+        if join:
+            self._queue[-1].append(item)
+        else:
+            self._queue.append([item] if ints else item)
+        if not ints:
+            self._versions.append((item, item._version))
+        self._n_queued += 1 if ints else int(item.shape[0])
+
     # -- squeezing ---------------------------------------------------------
 
     def get_challenge(self) -> torch.Tensor:
-        if self.input_buffer or not self.output_buffer:
-            self._duplex()
-        return self.output_buffer.pop()
+        return self.get_n_challenges(1)[0]
 
-    def get_n_challenges(self, n: int) -> List[torch.Tensor]:
-        return [self.get_challenge() for _ in range(n)]
+    def get_n_challenges(self, n: int) -> torch.Tensor:
+        """n challenges as one [n] tensor, in squeeze order."""
+        if self._queue or self._n_pending or self._n_out < n:
+            return self._transition(n)
+        out = self._state[self._n_out - n : self._n_out].flip(0)
+        self._n_out -= n
+        return out
 
     # -- internals ---------------------------------------------------------
 
-    def _duplex(self):
-        k = len(self.input_buffer)
-        if k:
-            self.state = torch.cat([torch.stack(self.input_buffer), self.state[k:]])
-            self.input_buffer = []
-        self.state = _permute1(self.state)
-        self.output_buffer = list(self.state[:RATE])
+    def _transition(self, n_squeeze: int) -> torch.Tensor:
+        """One K2t launch: the pending words and the queue absorbed, then
+        `n_squeeze` squeezes."""
+        if any(t._version != v for t, v in self._versions):
+            raise RuntimeError("DeviceChallenger: a tensor queued for absorbing was written "
+                               "before the squeeze that absorbs it")
+        vectors = [v for q in self._queue for v in (q if isinstance(q, list) else [q])]
+        n_words = self._n_pending + self._n_queued
+        state, left, out = poseidon_cuda.sponge_transition(
+            self._state, self._pending, vectors, n_squeeze, self._n_out)
+        fill, self._n_out = poseidon_cuda.sponge_schedule(n_words, self._n_out, n_squeeze)[1:3]
+        self._state = state
+        self._pending, self._n_pending = (left, fill) if fill else (None, 0)
+        self._queue, self._versions, self._n_queued = [], [], 0
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -180,13 +208,22 @@ def ctl_rows_device(rows, device) -> torch.Tensor:
 def ctl_totals_device(ctl_rows: List[torch.Tensor], betas: torch.Tensor,
                       gammas: torch.Tensor) -> torch.Tensor:
     """[n_challenges, n_ctls] extra looking totals: per CTL the sum over its
-    rows of 1 / (gamma + sum_j beta^j v_j) (`constraints.ctl_total`)."""
-    totals = torch.zeros((betas.shape[0], len(ctl_rows)), dtype=torch.int64,
-                         device=betas.device)
-    for i, (beta, gamma) in enumerate(zip(betas, gammas)):
-        for c, rows in enumerate(ctl_rows):
-            if rows.shape[0]:
-                bp = powers_vec(beta, rows.shape[1])
-                acc = gl.add(tree_reduce0(gl.mul(rows, bp).T), gamma)
-                totals[i, c] = tree_reduce0(gl.batch_inv(acc))
-    return totals
+    rows of 1 / (gamma + sum_j beta^j v_j) (`constraints.ctl_total`).  The
+    denominators of every (challenge, CTL) pair go into one
+    [n_challenges, n_ctls, most rows] tensor, shorter CTLs padded with 1,
+    so one batch inversion (one Fermat chain) serves them all; the padding
+    is masked out of the sums."""
+    dev = betas.device
+    nc, n_ctl = betas.shape[0], len(ctl_rows)
+    n_rows = [int(r.shape[0]) for r in ctl_rows]
+    most_rows = max(n_rows + [1])
+    most_cols = max([int(r.shape[1]) for r in ctl_rows] + [1])
+    bp = torch.stack([powers_vec(b, most_cols) for b in betas])  # [nc, most_cols]
+    dens = torch.ones((nc, n_ctl, most_rows), dtype=torch.int64, device=dev)
+    for c, rows in enumerate(ctl_rows):
+        if n_rows[c]:
+            terms = gl.mul(rows[None], bp[:, None, : rows.shape[1]])  # [nc, rows, cols]
+            dens[:, c, : n_rows[c]] = gl.add(tree_reduce0(terms.permute(2, 0, 1)), gammas[:, None])
+    live = torch.arange(most_rows)[None, :] < torch.tensor(n_rows, dtype=torch.int64)[:, None]
+    inv = torch.where(live.to(dev, non_blocking=True), gl.batch_inv(dens), 0)
+    return tree_reduce0(inv.permute(2, 0, 1))

@@ -281,15 +281,19 @@ def prove_fri_device(values: Ext, n_log: int, config: StarkConfig, challenger,
         challenger.observe_flat(final.T.reshape(-1))  # (c0, c1) per coefficient
 
     # the grind hashes the state as it stands (as the host pow_grind reads
-    # challenger.state): nothing may wait in the input buffer
-    assert not challenger.input_buffer, "input buffer not empty at the proof of work"
+    # challenger.state, which absorbs the final polynomial here): nothing
+    # may wait in the input buffer
     pow_bits = config.proof_of_work_bits
     with tt.scope("fri pow"):
-        nonce = pow_grind_device(challenger.state, pow_bits)
+        state = challenger.state
+        assert challenger.counts()[0] == 0, "input buffer not empty at the proof of work"
+        nonce = pow_grind_device(state, pow_bits)
+    # the nonce, the PoW check's challenge and the query indices: one transition
     challenger.observe_element(nonce)
-    pow_ok = ((challenger.get_challenge() >> (64 - pow_bits)) & ((1 << pow_bits) - 1)) == 0
+    squeezed = challenger.get_n_challenges(1 + config.num_query_rounds)
+    pow_ok = ((squeezed[0] >> (64 - pow_bits)) & ((1 << pow_bits) - 1)) == 0
     big_n = 1 << (n_log + config.rate_bits)
-    q_idx = torch.stack(challenger.get_n_challenges(config.num_query_rounds)) & (big_n - 1)
+    q_idx = squeezed[1:] & (big_n - 1)
 
     with tt.scope("fri query gather"):
         layers = []

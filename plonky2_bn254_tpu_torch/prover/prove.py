@@ -14,8 +14,8 @@ stage code and give the same proof:
   S5 fri(ldes, openings, alpha)    -> reduced oracle F + fold layers + trees
 
 Commits go through the hand kernels: iNTT (K3), coset LDE (K4) and the
-Merkle sponge (K1); the FRI grind uses K2, and so does every duplex of the
-device challenger, at [1, 12].
+Merkle sponge (K1); the FRI grind uses K2, and each transition of the
+device transcript is one K2t launch.
 """
 
 from __future__ import annotations
@@ -543,9 +543,8 @@ def _fs1(ch, stark: Stark, n_log: int, nc: int, cap, ctl_rows):
     challenge set; the CTL weights and extra looking totals they give."""
     ch.observe_element(n_log)
     ch.observe_cap(cap)
-    pairs = [ch.get_n_challenges(2) for _ in range(nc)]
-    betas = torch.stack([b for b, _ in pairs])
-    gammas = torch.stack([g for _, g in pairs])
+    pairs = ch.get_n_challenges(2 * nc).reshape(nc, 2)  # (beta, gamma) per set
+    betas, gammas = pairs[:, 0], pairs[:, 1]
     weights = [dcm.ctl_weights_device(stark, b) for b in betas]
     return betas, gammas, weights, dcm.ctl_totals_device(ctl_rows, betas, gammas)
 
@@ -553,7 +552,7 @@ def _fs1(ch, stark: Stark, n_log: int, nc: int, cap, ctl_rows):
 def _fs2(ch, nc: int, cap):
     """Absorb the aux cap; squeeze the constraint alphas and their powers."""
     ch.observe_cap(cap)
-    alphas = torch.stack(ch.get_n_challenges(nc))
+    alphas = ch.get_n_challenges(nc)
     return alphas, torch.stack([dcm.powers_vec(a, 513) for a in alphas])
 
 
@@ -565,7 +564,7 @@ def _fs3(ch, cap) -> Ext:
 
 def _fs4(ch, opens):
     """Absorb the six [2, k] opening batches ((c0, c1) per value, transcript
-    order); squeeze the FRI alpha.  Returns its powers [n_polys, 2], the
+    order) and squeeze the FRI alpha, one transition.  Returns its powers [n_polys, 2], the
     combined openings S(zeta) and S(zeta g) and alpha^n_polys."""
     for o in opens:
         ch.observe_flat(o.T.reshape(-1))

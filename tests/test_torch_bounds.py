@@ -99,3 +99,125 @@ def test_count_launch_records_keys():
     assert kernels.LAUNCHES["K3"] == 2 and kernels.CALLS["K3"] == {(2, 8, 8, True): 2}
     kernels.reset_launches()
     assert all(not kernels.CALLS[k] for k in kernels.KERNEL_IDS)
+
+
+# ---------------------------------------------------------------------------
+# K2t: the latency of one permutation and the work of a transition
+# ---------------------------------------------------------------------------
+
+
+def sum_finish(ready: list, step: int) -> int:
+    """The earliest a sum of terms ready at `ready` is done by adds of
+    `step` cycles: the least T at which a binary tree exists with term i at
+    depth at most floor((T - ready_i) / step), which is when
+    sum 2^-depth_i <= 1 (Kraft's inequality)."""
+    for t in sorted({r + k * step for r in ready for k in range(len(ready))}):
+        if t < max(ready):
+            continue
+        depths = [(t - r) // step for r in ready]
+        if sum(1 << (max(depths) - d) for d in depths) <= 1 << max(depths):
+            return t
+    raise AssertionError("no tree")
+
+
+class Dag:
+    """A dependency graph: nodes in the order they are made, so a node's
+    inputs come before it.  An op finishes its latency after the latest of
+    its inputs; a sum finishes when its terms can be added at the
+    earliest."""
+
+    def __init__(self):
+        self.nodes = []
+
+    def op(self, latency: int, *inputs) -> int:
+        self.nodes.append(("op", latency, inputs))
+        return len(self.nodes) - 1
+
+    def sum(self, step: int, terms) -> int:
+        self.nodes.append(("sum", step, tuple(terms)))
+        return len(self.nodes) - 1
+
+    def longest_path(self) -> int:
+        done = []
+        for kind, cost, inputs in self.nodes:
+            ready = [done[i] for i in inputs]
+            done.append(max(ready, default=0) + cost if kind == "op" else sum_finish(ready, cost))
+        return max(done)
+
+
+def chain_dag(lat: dict, written: list) -> Dag:
+    """The permutations of one transition op by op, as the permutation is
+    written (constant add, S-box x^7 = x^4 x^3 with x^3 = x^2 x and
+    x^4 = x^2 x^2 on every word of a full round and on word 0 of a partial
+    one, then each MDS row: a small product per word, their sum, one
+    reduction), `written[i]` words of state[:8] overwritten by input words
+    before permutation i.  Inputs and constants are ready at once, so a
+    round's constant is one more term of the MDS sum before it (the first
+    permutation's round 0 excepted), and a product fused with its add costs
+    `small_mul`: a product `small_mul - sum_add`, an add of the sum
+    `sum_add`."""
+    dag = Dag()
+    given = dag.op(0)
+    state = [dag.op(lat["add"], given) for _ in range(12)]
+    n_rounds = bounds.POSEIDON_FULL_ROUNDS + bounds.POSEIDON_PARTIAL_ROUNDS
+    half = bounds.POSEIDON_FULL_ROUNDS // 2
+    for p, n_written in enumerate(written):
+        if p:
+            state[:n_written] = [dag.op(lat["add"], given) for _ in range(n_written)]
+        for r in range(n_rounds):
+            full = r < half or r >= n_rounds - half
+            words = []
+            for e, x in enumerate(state):
+                if full or e == 0:
+                    x2 = dag.op(lat["mul"], x)
+                    x3, x4 = dag.op(lat["mul"], x2, x), dag.op(lat["mul"], x2)
+                    x = dag.op(lat["mul"], x4, x3)
+                words.append(x)
+            constant = [] if p == len(written) - 1 and r == n_rounds - 1 else [given]
+            state = [dag.op(lat["reduce"], dag.sum(lat["sum_add"], [
+                dag.op(lat["small_mul"] - lat["sum_add"], w) for w in words] + constant))
+                for _ in range(12)]
+    return dag
+
+
+@pytest.mark.parametrize("lat", [
+    dict(bounds.OP_LATENCY),
+    {"add": 9, "mul": 40, "reduce": 20, "small_mul": 14, "sum_add": 4},
+    {"add": 3, "mul": 5, "reduce": 7, "small_mul": 6, "sum_add": 5},
+])
+@pytest.mark.parametrize("written", [[8], [8, 8, 8], [0, 0], [8, 3, 0], [5, 8]])
+def test_transition_latency_is_its_critical_path(lat, written, monkeypatch):
+    monkeypatch.setattr(bounds, "OP_LATENCY", lat)
+    assert bounds.transition_latency(written) == chain_dag(lat, written).longest_path()
+
+
+def test_sum_finish_takes_the_best_tree():
+    """Twelve terms at once need four levels; a late term joins a tree of
+    the early ones at the top."""
+    assert sum_finish([0] * 12, 3) == 12
+    assert sum_finish([0] * 11 + [100], 3) == 103
+    assert sum_finish([0] * 8 + [50] * 4, 2) == 56
+
+
+@pytest.mark.parametrize("key", [(0, 0, 0, 1), (0, 0, 5, 3), (7, 1, 0, 9), (0, 4964, 6, 2),
+                                 (0, 65, 0, 4), (3, 0, 0, 0)])
+def test_sponge_transition_work_counts_the_duplex_schedule(key):
+    """Permutations: one per 8 words absorbed, one per squeeze that finds
+    input buffered or no output left, as the host challenger runs them; the
+    critical path of that chain with the words each one overwrites."""
+    from plonky2_bn254_tpu_torch.prover.challenger import Challenger
+
+    n_pending, n_words, n_out, n_squeeze = key
+    host, perms = Challenger(), []
+    host.state = [1] * 12
+    host.input_buffer = [0] * n_pending
+    host.output_buffer = [0] * n_out
+    duplex = host._duplex
+    host._duplex = lambda: (perms.append(min(len(host.input_buffer), 8)), duplex())
+    host.observe_elements([0] * n_words)
+    host.get_n_challenges(n_squeeze)
+    ops, nbytes, n_perms, chain = bounds.sponge_transition_work(key)
+    assert n_perms == len(perms)
+    assert chain == bounds.transition_latency(perms)
+    assert ops == n_perms * bounds.permutation_ops()
+    assert nbytes == 8 * (12 + n_pending + n_words) + 8 * (12 + len(host.input_buffer) + n_squeeze)

@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels K1-K4 against their plain PyTorch versions.
+"""Hand-written CUDA kernels K1-K4 and K2t against their plain PyTorch versions.
 
 These need an NVIDIA card with nvcc and skip without one.  On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -65,8 +65,9 @@ def test_k2_permute_states(card, n):
 
 
 def test_k2_single_state_in_the_device_challenger(card):
-    """The device challenger's duplex is K2 at [1, 12]: the same squeezes
-    as the host challenger, each permutation one launch of that shape."""
+    """The device challenger no longer duplexes through K2 at [1, 12]: the
+    same squeezes as the host challenger, one K2t launch for the absorb and
+    the 11 squeezes, none of K2."""
     from plonky2_bn254_tpu_torch.prover.challenger import Challenger
     from plonky2_bn254_tpu_torch.prover.device_challenger import DeviceChallenger
 
@@ -77,9 +78,51 @@ def test_k2_single_state_in_the_device_challenger(card):
     kernels.reset_launches()
     host.observe_elements([int(v) for v in xs])
     dev.observe_flat(tensor_from_u64(xs, card))
-    got = torch.stack(dev.get_n_challenges(11)).cpu().numpy().view(np.uint64)
+    got = dev.get_n_challenges(11).cpu().numpy().view(np.uint64)
     assert [int(v) for v in got] == host.get_n_challenges(11)
-    assert dict(kernels.CALLS["K2"]) == {(1,): 6}  # 4 chunks, the tail, one more squeeze
+    assert dict(kernels.CALLS["K2"]) == {}
+    assert dict(kernels.CALLS["K2t"]) == {(0, 37, 0, 11): 1}
+
+
+# (pending words, absorbed words, pending outputs, squeezes): fill 0 and 7, an
+# empty absorb, squeeze-only, more than 8 squeezes, a flush that leaves words
+# buffered, a long absorb (chip_smoke.py adds 9,000 words: its plain version
+# takes a minute on the card).
+K2T_KEYS = [(0, 0, 0, 1), (0, 0, 5, 3), (0, 0, 5, 9), (7, 0, 0, 2), (7, 1, 0, 1), (0, 13, 0, 0),
+            (3, 37, 0, 20), (0, 65, 0, 4), (2, 0, 0, 0), (0, 203, 6, 2)]
+
+
+@pytest.mark.parametrize("key", K2T_KEYS)
+def test_k2t_sponge_transition(card, key):
+    """K2t equals the plain version: the state, the leftover words and the
+    outputs, with words from device vectors (some empty) and by value, and
+    edge words in the state."""
+    n_pending, n_words, n_out, n_squeeze = key
+    rng = np.random.default_rng(sum(key))
+    state = _rand((12,), card, seed=sum(key), full_range=True)
+    state[:3] = tensor_from_u64(np.array([gl.P, 2**64 - 1, 0], dtype=np.uint64), card)
+    pending = _rand((n_pending,), card, seed=1) if n_pending else None
+    words = _rand((n_words,), card, seed=2)
+    cut = int(rng.integers(0, n_words + 1))
+    vectors = [words[:cut], words[:0], *[int(v) for v in words[cut : cut + 3].cpu().numpy().view(np.uint64)],
+               words[cut + 3 :]]
+    kernels.reset_launches()
+    got = poseidon_cuda.sponge_transition(state, pending, vectors, n_squeeze, n_out)
+    assert dict(kernels.CALLS["K2t"]) == {key: 1}
+    want = poseidon_cuda.sponge_transition_plain(state, pending, vectors, n_squeeze, n_out)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_k2t_rejects_what_it_does_not_take(card):
+    state = _rand((12,), card)
+    words = _rand((16, 2), card)
+    with pytest.raises(ValueError):
+        poseidon_cuda.sponge_transition(state, None, [words.T[0]], 1)  # not contiguous
+    with pytest.raises(ValueError):
+        poseidon_cuda.sponge_transition(state, None, [words[:, 0].cpu()], 1)  # other device
+    with pytest.raises(ValueError):
+        poseidon_cuda.sponge_transition(state, None, list(range(poseidon_cuda.MAX_IMMEDIATE + 1)), 1)
 
 
 # Every split of the two-pass plan and the one-pass/two-pass boundary (2^10 /
@@ -145,10 +188,11 @@ def test_demo_proof_on_card_equals_cpu(card):
 
 def test_demo_device_fs_proof_on_card_equals_cpu(card):
     """Both transcripts on the card give the CPU's host-FS proof; the device
-    flow duplexes through K2 at [1, 12]."""
+    flow runs its transitions through K2t, never K2 at [1, 12]."""
     from plonky2_bn254_tpu_torch.prover import prove as prove_mod
     from plonky2_bn254_tpu_torch.prover import verify as verify_mod
     from plonky2_bn254_tpu_torch.prover.config import TEST_CONFIG
+    from plonky2_bn254_tpu_torch.prover.fri import domain_shifts_and_sizes
     from plonky2_bn254_tpu_torch.starks.demo import demo_stark, demo_trace
 
     trace, ctl = demo_trace(np.random.default_rng(5))
@@ -156,13 +200,15 @@ def test_demo_device_fs_proof_on_card_equals_cpu(card):
     want = as_json(prove_mod.prove(demo_stark(), trace, ctl, TEST_CONFIG, device_fs=False))
     kernels.reset_launches()
     proof = prove_mod.prove(demo_stark(), trace.to(card), ctl, TEST_CONFIG, device_fs=True)
-    assert kernels.CALLS["K2"][(1,)] > 0
+    n_layers = len(domain_shifts_and_sizes(trace.shape[0].bit_length() - 1, TEST_CONFIG)[0])
+    assert kernels.LAUNCHES["K2t"] == 4 + n_layers + 2
+    assert kernels.CALLS["K2"][(1,)] == 0
     assert all(kernels.LAUNCHES[k] > 0 for k in kernels.KERNEL_IDS)
     assert as_json(proof) == want
     verify_mod.verify(demo_stark(), proof, ctl, TEST_CONFIG)
     kernels.reset_launches()
     host = prove_mod.prove(demo_stark(), trace.to(card), ctl, TEST_CONFIG, device_fs=False)
-    assert kernels.CALLS["K2"][(1,)] == 0
+    assert kernels.CALLS["K2"][(1,)] == 0 and kernels.LAUNCHES["K2t"] == 0
     assert as_json(host) == want
 
 

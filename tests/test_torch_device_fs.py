@@ -8,7 +8,7 @@ absorb clears its outputs; ragged CTL rows fail), the port follows the host.
 `prove(device_fs=True)` must equal the port's host-FS proof and the JAX
 package's `prove(..., device_fs=True)` field by field (exact integer
 arithmetic: tolerance zero), and both verifiers must accept it.  On the CPU
-every duplex takes K2's plain version.
+every transcript transition takes K2t's plain version.
 """
 
 import numpy as np
@@ -20,6 +20,7 @@ from plonky2_bn254_tpu.prover import verify as jverify
 from plonky2_bn254_tpu.prover.config import TEST_CONFIG as JTEST_CONFIG
 from plonky2_bn254_tpu.starks import demo as jdemo
 from plonky2_bn254_tpu_torch.field import goldilocks as gl
+from plonky2_bn254_tpu_torch.field import poseidon_cuda
 from plonky2_bn254_tpu_torch.field.extension import GLExt
 from plonky2_bn254_tpu_torch.interop import proof_to_fields, tensor_from_u64
 from plonky2_bn254_tpu_torch.prover import constraints as cons
@@ -28,6 +29,7 @@ from plonky2_bn254_tpu_torch.prover import prove as prove_mod
 from plonky2_bn254_tpu_torch.prover import verify as verify_mod
 from plonky2_bn254_tpu_torch.prover.challenger import Challenger
 from plonky2_bn254_tpu_torch.prover.config import TEST_CONFIG
+from plonky2_bn254_tpu_torch.prover.fri import domain_shifts_and_sizes
 from plonky2_bn254_tpu_torch.starks import demo
 from plonky2_bn254_tpu_torch.starks.table import g1_scalar_mul_stark
 from test_torch_prove import assert_fields_equal, to_jax_proof
@@ -81,7 +83,7 @@ def test_empty_absorb_keeps_pending_outputs():
     assert _ints([dev.get_challenge()]) == [host.get_challenge()]
     host.observe_elements([])
     dev.observe_flat(_vec([]))
-    assert len(dev.output_buffer) == len(host.output_buffer) == 7
+    assert dev.counts() == (0, len(host.output_buffer)) == (0, 7)
     assert _ints(dev.get_n_challenges(9)) == host.get_n_challenges(9)
 
 
@@ -98,10 +100,14 @@ def test_powers_and_ext_powers():
 
 
 @pytest.mark.parametrize("ragged", [False, True])
-def test_ctl_weights_and_totals_match_host(ragged):
+def test_ctl_weights_and_totals_match_host(ragged, monkeypatch):
     """Weights against `flat_weights` and totals against `ctl_total`, for
     rows of one length and for ragged rows (zero-padded: a zero value adds
-    nothing) with an empty CTL among them."""
+    nothing) and CTLs of different row counts, an empty one among them; the
+    totals of every (challenge, CTL) pair take one batch inversion."""
+    inversions = []
+    batch_inv = gl.batch_inv
+    monkeypatch.setattr(gl, "batch_inv", lambda x: inversions.append(x.shape) or batch_inv(x))
     stark = g1_scalar_mul_stark()
     betas = RNG.integers(1, gl.P, size=2, dtype=np.uint64)
     gammas = RNG.integers(1, gl.P, size=2, dtype=np.uint64)
@@ -111,7 +117,8 @@ def test_ctl_weights_and_totals_match_host(ragged):
     ctl_values = []
     for c, ctl in enumerate(stark.ctls):
         n_cols = len(ctl.flat_weights(1, gl.P))
-        lens = RNG.integers(1, n_cols + 1, size=7) if ragged else [n_cols] * 7
+        n_rows = 7 + 3 * c if ragged else 7
+        lens = RNG.integers(1, n_cols + 1, size=n_rows) if ragged else [n_cols] * n_rows
         ctl_values.append([[int(v) for v in RNG.integers(0, gl.P, size=k, dtype=np.uint64)]
                            for k in lens])
     if ragged:
@@ -119,6 +126,7 @@ def test_ctl_weights_and_totals_match_host(ragged):
     got = dc.ctl_totals_device([dc.ctl_rows_device(rows, "cpu") for rows in ctl_values],
                                _vec(betas), _vec(gammas))
     assert got.shape == (2, len(ctl_values))
+    assert len(inversions) == 1
     for i, (beta, gamma) in enumerate(zip(betas, gammas)):
         want = [cons.ctl_total(rows, int(beta), int(gamma)) for rows in ctl_values]
         assert _ints(got[i]) == want
@@ -152,17 +160,28 @@ def test_device_fs_proof_equals_host_and_jax(name):
 
 def test_default_flow_follows_the_device(monkeypatch):
     """device_fs=None is the host flow on the CPU: no device challenger is
-    made there unless asked for."""
+    made there unless asked for.  The device flow is one transcript
+    transition (K2t, here its plain version) for each of fs1-fs4, one per
+    FRI layer, one before the grind and one for the nonce and queries."""
     trace, ctl = demo.demo_trace(np.random.default_rng(4))
-    made = []
+    made, transitions = [], []
     orig = dc.DeviceChallenger.__init__
+    orig_transition = poseidon_cuda.sponge_transition
 
     def spy(self, device):
         made.append(torch.device(device))
         orig(self, device)
 
+    def count(*args, **kwargs):
+        transitions.append(args[3])
+        return orig_transition(*args, **kwargs)
+
     monkeypatch.setattr(dc.DeviceChallenger, "__init__", spy)
+    monkeypatch.setattr(poseidon_cuda, "sponge_transition", count)
     prove_mod.prove(demo.demo_stark(), trace, ctl, TEST_CONFIG)
-    assert made == []
+    assert made == [] and transitions == []
     prove_mod.prove(demo.demo_stark(), trace, ctl, TEST_CONFIG, device_fs=True)
     assert made == [torch.device("cpu")]
+    n_layers = len(domain_shifts_and_sizes(trace.shape[0].bit_length() - 1, TEST_CONFIG)[0])
+    assert len(transitions) == 4 + n_layers + 2
+    assert transitions[-2:] == [0, 1 + TEST_CONFIG.num_query_rounds]

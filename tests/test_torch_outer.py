@@ -287,6 +287,20 @@ def test_outer_rejects_value_far_outside_a_narrow_range():
                 outer.verify_outer(data, proof, pub, TEST_CONFIG)
 
 
+def test_outer_proof_with_the_device_transcript_equals_the_host_one(built, proofs):
+    """`prove_outer` takes `prove`'s default, the device transcript on the
+    card; on the CPU both transcripts give the same outer proof field by
+    field, and it verifies."""
+    _, p = built["small"]
+    trace, pub, ctl = outer.build_outer_trace(p.data, p.values)
+    dev = prove_mod.prove(p.data.stark, trace, ctl, TEST_CONFIG, device_fs=True)
+    host = prove_mod.prove(p.data.stark, trace, ctl, TEST_CONFIG, device_fs=False)
+    fields = proof_to_fields(dev)
+    assert_fields_equal(fields, proof_to_fields(host))
+    assert_fields_equal(fields, proof_to_fields(proofs["small"][1]))
+    outer.verify_outer(p.data, dev, pub, TEST_CONFIG)
+
+
 def test_outer_outputs_are_the_circuit_values(built, proofs):
     """The publics are the witness values the gadgets compute."""
     _, p = built["fq"]
