@@ -31,6 +31,20 @@ Phases (any failure exits non-zero before the result line):
      proof verifies and is rejected with one opening flipped; one more
      host-FS proof under the synchronising timer gives its stage times; the
      wrappers record the shape of every launch (kernels.CALLS);
+  5m. the mesh path, right after fq_exp's first proof: the same 2^16 x 427
+     trace (written once to a file the ranks map, so no rank builds it)
+     proved at DEFAULT_CONFIG by prove(..., mesh=...) on 4 ranks of a gloo
+     group spawned on the one card (parallel/launch.py, file init in a
+     temporary directory; the kernel library already built), twice, each
+     rank's launch counts set to 0 just before each proof and read just
+     after: every rank's proof equals the path's host-FS proof field by
+     field, K1, K2 and K3 launched on every rank (K4 and K2t not: the mesh
+     commits are two mesh NTTs, the transcript the host's), the proof
+     verifies and is rejected with one opening flipped; printed: the
+     barrier-to-barrier wall of each sharded proof and its commit scopes,
+     each rank's peak device memory beside the single-device host-FS
+     proof's, and the bytes each rank sent beside the model of the mesh
+     transforms; the ranks' kernels.CALLS join the kernel phase as "mesh";
   6. the compose path, the circuit API's production product (as
      scripts/prove_compose_default.py and scripts/bench_outer.py define it):
      two fq_exp ops from numpy.random.default_rng(123) recorded on a
@@ -81,6 +95,7 @@ import multiprocessing
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from collections import Counter
@@ -97,6 +112,10 @@ TABLE_BITS = 16
 H2G_SEED = 170
 H2G_INPUTS = 4
 MAX_TRANSITIONS = 16  # K2t launches a device-FS machine proof may take
+MESH_PATH = "fq_exp"
+MESH_RANKS = 4
+MESH_PROOFS = 2  # the first meets cold tables
+MESH_TIMEOUT_S = 400
 
 KERNELS = {
     "K1": ("hash_leaves", "plonky2_bn254_tpu_torch/csrc/poseidon.cu",
@@ -569,6 +588,8 @@ def first_proof(path: Path) -> dict:
         raise AssertionError(f"path {path.name}: the device-FS proof differs from the host-FS proof")
     log("  device-FS proofs equal the host-FS proof field by field")
     host_stages = flow_stages(path, trace, device_fs=False)
+    if path.name == MESH_PATH:
+        path.mesh_trace, path.host_fs_json = trace, as_json(host_proof)
 
     t0 = time.perf_counter()
     path.verify(dev_proof)
@@ -587,6 +608,132 @@ def first_proof(path: Path) -> dict:
             "device_fs_again": {k: v for k, v in warm_run.items() if k != "calls"},
             "launches": dev_run["launches"], "calls": dev_run["calls"],
             "host_fs_calls": host_run["calls"]}
+
+
+def mesh_rank(rank: int, world: int, trace_file: str, ctl_values, n_proofs: int) -> dict:
+    """One rank of the mesh phase, in a spawned process: the mesh on the
+    card's default device (every rank on cuda:0, gloo moving host
+    tensors), then `n_proofs` proofs of the mapped trace, each between two
+    barriers with the launch counts set to 0 just before it and read just
+    after."""
+    import torch.distributed as dist
+
+    from plonky2_bn254_tpu_torch import kernels
+    from plonky2_bn254_tpu_torch.interop import proof_to_fields
+    from plonky2_bn254_tpu_torch.parallel.mesh import make_mesh
+    from plonky2_bn254_tpu_torch.prover import prove as prove_mod
+    from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG
+    from plonky2_bn254_tpu_torch.starks import table
+    from plonky2_bn254_tpu_torch.utils.timing import TimingTree
+
+    mesh = make_mesh(world)
+    trace = torch.from_numpy(np.load(trace_file, mmap_mode="c"))  # each rank reads its rows
+    stark = table.fq_exp_stark()
+    proofs = []
+    for _ in range(n_proofs):
+        tt = TimingTree(enabled=True)
+        torch.cuda.synchronize(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        mesh.reset_stats()
+        dist.barrier()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        proof = prove_mod.prove(stark, trace, ctl_values, DEFAULT_CONFIG, timing=tt, mesh=mesh)
+        torch.cuda.synchronize(mesh.device)
+        launches = dict(kernels.LAUNCHES)
+        calls = {k: dict(kernels.CALLS[k]) for k in kernels.KERNEL_IDS}
+        dist.barrier()
+        proofs.append({"wall_s": time.perf_counter() - t0, "scopes": tt.records,
+                       "peak_gb": gb(torch.cuda.max_memory_allocated(mesh.device)),
+                       "stats": dict(mesh.stats), "launches": launches, "calls": calls,
+                       "fields": proof_to_fields(proof)})
+    return {"device": str(mesh.device), "backend": mesh.backend, "wire": str(mesh.wire),
+            "proofs": proofs}
+
+
+def mesh_model_bytes(stark_width: int, fields: dict, n_log: int, D: int) -> int:
+    """Bytes one rank sends in the mesh transforms of a rate-1 proof by the
+    reference's model, 3 * 8 * w * C * (D - 1) / D a transform (C its block):
+    iNTT and the LDE's two NTTs of the trace and aux batches, the quotient's
+    iNTT over the N = 2n coset, its halves' LDE."""
+    n = 1 << n_log
+    w_aux = len(fields["openings"]["aux_zeta"])
+    w_q = len(fields["openings"]["quotient_zeta"])
+    words = 3 * (stark_width + w_aux) * (n // D) + (w_q // 2) * (2 * n // D) + 2 * w_q * (n // D)
+    return 3 * 8 * words * (D - 1) // D
+
+
+def mesh_phase(path, single: dict, card: str) -> dict:
+    """The mesh phase (5m of the module docstring); `single`: the path's
+    first_proof record.  Fails unless every rank's proof equals the
+    single-device host-FS proof and every rank launched K1, K2 and K3."""
+    from plonky2_bn254_tpu_torch.field.extension import GLExt
+    from plonky2_bn254_tpu_torch.interop import proof_from_fields
+    from plonky2_bn254_tpu_torch.parallel import launch
+    from plonky2_bn254_tpu_torch.prover import verify as verify_mod
+
+    log(f"# mesh: {path.name} 2^16 x {path.stark.width} at DEFAULT_CONFIG on {MESH_RANKS} gloo "
+        f"ranks sharing the card ({card})")
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_file = os.path.join(tmp, "trace.npy")
+        np.save(trace_file, path.mesh_trace.cpu().numpy())
+        del path.mesh_trace
+        t0 = time.perf_counter()
+        ranks = launch.run(mesh_rank, MESH_RANKS, trace_file, path.ctl_values, MESH_PROOFS,
+                           timeout=MESH_TIMEOUT_S)
+        spawn_to_end = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        if (res["device"], res["backend"], res["wire"]) != ("cuda:0", "gloo", "cpu"):
+            raise AssertionError(f"mesh rank {r}: {res['device']}, {res['backend']}, {res['wire']}")
+        for i, p in enumerate(res["proofs"]):
+            if json.dumps(p["fields"], default=lambda v: v.tolist()) != path.host_fs_json:
+                raise AssertionError(f"mesh rank {r}, proof {i}: differs from the host-FS proof")
+            missing = [k for k in ("K1", "K2", "K3") if p["launches"][k] <= 0]
+            if missing or p["launches"]["K2t"]:
+                raise AssertionError(f"mesh rank {r}, proof {i}: launches {p['launches']}")
+    log(f"  every rank's {MESH_PROOFS} proofs equal the single-device host-FS proof field by field; "
+        f"K1, K2, K3 launched on every rank")
+    proof = proof_from_fields(ranks[0]["proofs"][0]["fields"])
+    path.verify(proof)
+    proof.openings.trace_zeta[0] = proof.openings.trace_zeta[0] + GLExt(1)
+    try:
+        path.verify(proof)
+    except verify_mod.VerificationError as e:
+        log(f"  sharded proof verified; with a flipped opening rejected: {e}")
+    else:
+        raise AssertionError("mesh: a sharded proof with a flipped opening was accepted")
+
+    walls = [max(res["proofs"][i]["wall_s"] for res in ranks) for i in range(MESH_PROOFS)]
+    peaks = [res["proofs"][-1]["peak_gb"] for res in ranks]
+    sent = [res["proofs"][-1]["stats"]["bytes_sent"] for res in ranks]
+    model = mesh_model_bytes(path.stark.width, ranks[0]["proofs"][0]["fields"], 16, MESH_RANKS)
+    scopes = ranks[0]["proofs"][-1]["scopes"]
+    log(f"  synchronised wall (barrier to barrier) {', '.join(f'{w:.3f}' for w in walls)} s; "
+        f"spawn to last result {spawn_to_end:.1f} s; rank 0 stages of the last proof:")
+    for depth, stage, secs in scopes:
+        log(f"    {'  ' * depth}{secs:8.3f}s  {stage}")
+    host = single["host_fs_stages_s"]
+    top = {stage: secs for depth, stage, secs in scopes if depth == 0}
+    log("  stages, mesh rank 0 / single-device host FS (s): " + ", ".join(
+        f"{k} {top.get(k, 0):.3f} / {host.get(k, 0):.3f}" for k in top)
+        + f", proof {walls[-1]:.3f} / {host['proof']:.3f}")
+    single_peak_gb = single["host_fs"]["peak_gb"]
+    log(f"  peak device memory per rank {[round(x, 2) for x in peaks]} GB; the single-device "
+        f"host-FS proof {single_peak_gb:.2f} GB")
+    log(f"  bytes sent per rank {sent} (exchanges {ranks[0]['proofs'][-1]['stats']['exchanges']}, "
+        f"gathers {ranks[0]['proofs'][-1]['stats']['gathers']}); the reference's model of the "
+        f"mesh transforms {model} per rank")
+    first = [res["proofs"][0] for res in ranks]
+    launches = {k: sum(p["launches"][k] for p in first) for k in first[0]["launches"]}
+    calls = {k: Counter() for k in first[0]["calls"]}
+    for p in first:
+        for k, per_key in p["calls"].items():
+            calls[k].update(per_key)
+    return {"ranks": MESH_RANKS, "walls_s": walls, "spawn_to_end_s": spawn_to_end,
+            "scopes_s": scopes, "peak_gb_per_rank": peaks, "single_device_peak_gb": single_peak_gb,
+            "bytes_sent_per_rank": sent, "model_transform_bytes_per_rank": model,
+            "launches_per_rank": [p["launches"] for p in first], "launches": launches,
+            "calls": {k: dict(v) for k, v in calls.items()}}
 
 
 class Compose:
@@ -940,6 +1087,10 @@ def main() -> int:
         runs[name] = first_proof(paths[name])
         paths[name].host_fs_stages = runs[name]["host_fs_stages_s"]
         phase_done(f"{name} first proof", t0)
+        if name == MESH_PATH:
+            t0 = time.perf_counter()
+            runs["mesh"] = mesh_phase(paths[name], runs[name], card)
+            phase_done("mesh", t0)
 
     t0 = time.perf_counter()
     paths["compose"] = Compose(device)
@@ -954,7 +1105,7 @@ def main() -> int:
 
     log("# kernels vs plain versions at every path shape (torch.equal, tolerance 0)")
     t0 = time.perf_counter()
-    calls_by_path = {p: runs[p]["calls"] for p in main_paths + ("h2g",)}
+    calls_by_path = {p: runs[p]["calls"] for p in main_paths + ("h2g", "mesh")}
     for p in PATHS:
         calls_by_path[f"{p} host FS"] = runs[p]["host_fs_calls"]
     calls_by_path["compose witness"] = runs["compose"]["witness_calls"]
@@ -971,13 +1122,13 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     hidden = ("calls", "witness_calls", "compile_calls", "host_fs_calls")
     print(json.dumps({"native_host_poseidon": native}))
-    for p in main_paths + ("h2g",):
+    for p in main_paths + ("h2g", "mesh"):
         print(json.dumps({"path": p, **{k: v for k, v in runs[p].items() if k not in hidden}}))
 
     table = {"kernels": []}
     for kid in kernels.KERNEL_IDS:
         main = kres[kid].get("main") or kres[kid]["timed"][0]
-        by_path = {p: runs[p]["launches"][kid] for p in main_paths + ("h2g",)}
+        by_path = {p: runs[p]["launches"][kid] for p in main_paths + ("h2g", "mesh")}
         table["kernels"].append({
             "name": f"{kid} {KERNELS[kid][0]}", "route": "cuda", "source": KERNELS[kid][1],
             "replaces": KERNELS[kid][2], "launches": sum(by_path.values()),

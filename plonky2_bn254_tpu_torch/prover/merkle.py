@@ -3,6 +3,8 @@
 Port of `plonky2_bn254_tpu/prover/merkle.py`.  Leaves and every level go
 through the leaf-sponge kernel K1 (`field/poseidon_cuda.py`): a level is the
 sponge of `[m/2, 8]` pair rows, since two_to_one(l, r) == hash_no_pad(l || r).
+On a mesh (`ShardedTree`) each rank hashes its contiguous block of leaves
+into its own subtree; only the subtree roots or the cap are gathered.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from ..field import native, poseidon_cuda
 from ..interop import u64_from_tensor
+from ..parallel.mesh import Mesh, all_gather
 
 
 @dataclass
@@ -83,3 +86,46 @@ def gather_rows_and_paths(leaves: torch.Tensor, levels, indices):
     idx = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=leaves.device)
     paths = [u64_from_tensor(p) for p in gather_paths_dev(levels, idx)]
     return u64_from_tensor(leaves[idx]), paths
+
+
+@dataclass
+class ShardedTree:
+    """A Merkle tree whose leaves lie in contiguous blocks over the ranks of
+    a mesh.  `local`: this rank's subtree levels, leaf digests first; `top`:
+    the levels above them, the same on every rank, ending in the cap."""
+
+    local: List[torch.Tensor]
+    top: List[torch.Tensor]
+
+    @property
+    def cap(self) -> torch.Tensor:
+        return self.top[-1]
+
+    def paths(self, idx: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
+        """Sibling digests below the cap of the global leaves `idx` ([Q],
+        the same on every rank): the owner rank's subtree path, gathered,
+        then the shared top levels."""
+        block = self.local[0].shape[0]
+        owner = idx // block
+        local = gather_paths_dev(self.local, idx % block)
+        if local:
+            mine = torch.stack(local, dim=1)  # [Q, subtree levels, 4], valid where owner == rank
+            every = all_gather(mesh, mine[None], axis=0)
+            local = list(every[owner, torch.arange(idx.shape[0], device=idx.device)].unbind(1))
+        return local + gather_paths_dev(self.top, owner)
+
+
+def sharded_tree(leaves: torch.Tensor, cap_height: int, mesh: Mesh) -> ShardedTree:
+    """This rank's `[N/D, L]` block of leaf rows -> its `ShardedTree` with a
+    2^cap_height cap.  Cap height >= log2 D: the cap nodes lie inside the
+    subtrees and only the cap is gathered; below it, the D subtree roots are
+    gathered and the levels above them built on every rank."""
+    d_log = mesh.size.bit_length() - 1
+    if cap_height >= d_log:
+        local = device_tree_levels(leaves, cap_height - d_log)
+        return ShardedTree(local=local, top=[all_gather(mesh, local[-1], axis=0)])
+    local = device_tree_levels(leaves, 0)
+    top = [all_gather(mesh, local[-1], axis=0)]
+    for _ in range(d_log - cap_height):
+        top.append(poseidon_cuda.hash_leaves(top[-1].reshape(-1, 8)))
+    return ShardedTree(local=local, top=top)

@@ -16,6 +16,15 @@ stage code and give the same proof:
 Commits go through the hand kernels: iNTT (K3), coset LDE (K4) and the
 Merkle sponge (K1); the FRI grind uses K2, and each transition of the
 device transcript is one K2t launch.
+
+On a mesh (`prove(..., mesh=...)`, `parallel/mesh.py`) every rank runs this
+host-transcript flow on its contiguous block of the rows: the commits take
+the mesh iNTT and rate-1 LDE (`parallel/ntt.py`: all-to-alls around local K3
+transforms) and a sharded Merkle tree (K1), and the stages exchange only
+what crosses a block edge: suffix-sum totals, the next-row halo, opening
+partial sums, caps or subtree roots, and the one FRI column every rank then
+folds alike.  Every rank returns the same proof, equal to the
+single-device one.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ from ..field import goldilocks as gl
 from ..field import ntt, ntt_cuda
 from ..field.extension import Ext, GLExt
 from ..interop import tensor_from_u64, u64_from_tensor
+from ..parallel import ntt as pntt
+from ..parallel.mesh import Mesh, all_gather, exchange, shard_rows
 from ..starks.air import GL, ConstraintConsumer, GLRing
 from ..starks.table import KeyedLookup, Stark
 from ..utils import timing as timing_mod
@@ -39,8 +50,8 @@ from . import device_challenger as dcm
 from . import fri as fri_mod
 from .challenger import Challenger
 from .config import StarkConfig
-from .merkle import device_tree_levels, gather_paths_dev
-from .poly_batch import bit_rev_perm, bit_rev_perm_dev, leaf_rows
+from .merkle import ShardedTree, device_tree_levels, gather_paths_dev, sharded_tree
+from .poly_batch import bit_rev_perm, bit_rev_perm_dev, leaf_rows, sharded_leaf_rows
 
 # Rows of the LDE coset per quotient chunk: bounds the plain-torch
 # temporaries of the constraint evaluation.
@@ -85,16 +96,24 @@ def _ext_powers(z, n: int, device) -> Ext:
     return Ext(pows.c0[:n], pows.c1[:n])
 
 
-def _rev_cumsum(values: torch.Tensor) -> torch.Tensor:
+def _rev_cumsum(values: torch.Tensor, mesh: Mesh = None) -> torch.Tensor:
     """Reversed inclusive prefix sum mod p along the last axis, by doubling
-    (torch.cumsum would add mod 2^64)."""
+    (torch.cumsum would add mod 2^64).  On a mesh the axis is split in
+    blocks: each rank adds the totals of the later ranks' blocks."""
     acc = values.flip(-1)
     d = 1
     n = acc.shape[-1]
     while d < n:
         acc = torch.cat([acc[..., :d], gl.add(acc[..., d:], acc[..., :-d])], dim=-1)
         d *= 2
-    return acc.flip(-1)
+    acc = acc.flip(-1)
+    if mesh is None:
+        return acc
+    totals = all_gather(mesh, acc[..., :1], axis=-1)  # [..., D]: each block's total
+    later = totals[..., mesh.rank + 1 :]
+    if later.shape[-1] == 0:
+        return acc
+    return gl.add(acc, cons.tree_reduce0(later.movedim(-1, 0))[..., None])
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,27 +146,46 @@ def _domain_arrays(n_log: int, rate_bits: int, device: torch.device):
 # ---------------------------------------------------------------------------
 
 
-def commit_values(values: torch.Tensor, config: StarkConfig, tt=None):
-    """[k, n] values -> (coeffs [k, n], LDE [k, N], Merkle levels)."""
+def commit_values(values: torch.Tensor, config: StarkConfig, tt=None, mesh: Mesh = None):
+    """[k, n] values -> (coeffs [k, n], LDE [k, N], Merkle levels); on a
+    mesh each of them is this rank's block and the tree a `ShardedTree`."""
     tt = timing_mod.get(tt)
     with tt.scope("intt"):
-        coeffs = ntt_cuda.intt(values.contiguous())
+        coeffs = (ntt_cuda.intt(values.contiguous()) if mesh is None
+                  else pntt.mesh_intt(values, mesh))
     with tt.scope("lde"):
-        lde = ntt_cuda.coset_lde(coeffs, config.rate_bits)
+        lde = _lde(coeffs, config, mesh)
     with tt.scope("merkle"):
-        levels = device_tree_levels(leaf_rows(lde), config.cap_height)
+        levels = _tree(lde, config, mesh)
     return coeffs, lde, levels
 
 
-def commit_coeffs(coeffs: torch.Tensor, config: StarkConfig):
+def commit_coeffs(coeffs: torch.Tensor, config: StarkConfig, mesh: Mesh = None):
     """[k, n] coefficients -> (LDE [k, N], Merkle levels)."""
-    lde = ntt_cuda.coset_lde(coeffs.contiguous(), config.rate_bits)
-    return lde, device_tree_levels(leaf_rows(lde), config.cap_height)
+    lde = _lde(coeffs, config, mesh)
+    return lde, _tree(lde, config, mesh)
 
 
-def _make_aux(stark: Stark):
+def _lde(coeffs: torch.Tensor, config: StarkConfig, mesh: Mesh = None) -> torch.Tensor:
+    if mesh is None:
+        return ntt_cuda.coset_lde(coeffs.contiguous(), config.rate_bits)
+    return pntt.mesh_coset_lde_rate1(coeffs, mesh)
+
+
+def _tree(lde: torch.Tensor, config: StarkConfig, mesh: Mesh = None):
+    if mesh is None:
+        return device_tree_levels(leaf_rows(lde), config.cap_height)
+    return sharded_tree(sharded_leaf_rows(lde, mesh), config.cap_height, mesh)
+
+
+def _cap(levels) -> torch.Tensor:
+    return levels.cap if isinstance(levels, ShardedTree) else levels[-1]
+
+
+def _make_aux(stark: Stark, mesh: Mesh = None):
     """Aux-column pipeline: LogUp helper pairs and Z per lookup, CTL Z per
-    CTL, for each challenge set."""
+    CTL, for each challenge set; pointwise in the rows but for the Z
+    columns' suffix sums (`_rev_cumsum`, across the mesh's blocks)."""
 
     def aux_core(trace_cols, betas, gammas, ctl_weight_specs):
         """betas/gammas: python ints per challenge; ctl_weight_specs: per
@@ -196,26 +234,30 @@ def _make_aux(stark: Stark):
                 aux.append(helpers)
                 h_sum = cons.tree_reduce0(helpers)
                 contribution = gl.sub(h_sum, gl.mul(freq, table_inv))
-                aux.append(_rev_cumsum(contribution)[None])
+                aux.append(_rev_cumsum(contribution, mesh)[None])
             for c_idx, ctl in enumerate(stark.ctls):
                 col_idx, weights = ctl_weight_specs[i][c_idx]
                 weighted = gl.mul(trace_cols[col_idx], weights[:, None])
                 acc = gl.add(cons.tree_reduce0(weighted), gamma_c)
                 filt = trace_cols[ctl.filter_col]
-                aux.append(_rev_cumsum(gl.mul(filt, gl.batch_inv(acc)))[None])
+                aux.append(_rev_cumsum(gl.mul(filt, gl.batch_inv(acc)), mesh)[None])
         return torch.cat(aux, dim=0)
 
     return aux_core
 
 
-def _make_quotient(stark: Stark, n_log: int, config: StarkConfig):
+def _make_quotient(stark: Stark, n_log: int, config: StarkConfig, mesh: Mesh = None):
     """Quotient evaluation in LDE-point chunks, then Z_H division, iNTT and
-    the degree split."""
+    the degree split.  On a mesh the LDEs are this rank's blocks: the next
+    row crosses the block edge (`_next_rows`), the iNTT is the mesh one, and
+    the degree split reshards N-blocks to n-blocks (`_split_degree`)."""
     n = 1 << n_log
     rate = config.rate_bits
     N = n << rate
     step = 1 << rate
-    C = min(N, QUOTIENT_CHUNK)
+    D = 1 if mesh is None else mesh.size
+    lo_block = 0 if mesh is None else mesh.rank * (N // D)
+    C = min(N // D, QUOTIENT_CHUNK)
     shift_inv_pows_np = ntt._coset_powers(N, gl.h_inv(gl.MULTIPLICATIVE_GROUP_GENERATOR))
     ctl_static_cols = tuple(
         tuple(c for c, _ in ctl.flat_weights(1, gl.P)) for ctl in stark.ctls
@@ -242,11 +284,12 @@ def _make_quotient(stark: Stark, n_log: int, config: StarkConfig):
     def quotient_core(t_lde, a_lde, alphas, alpha_pows, challenges, ctl_totals,
                       weight_arrays):
         dev = t_lde.device
-        xs, inv_z_h, z_last, l_first, l_last = _domain_arrays(n_log, rate, dev)
-        t_nxt = torch.roll(t_lde, -step, dims=1)
-        a_nxt = torch.roll(a_lde, -step, dims=1)
+        block = slice(lo_block, lo_block + N // D)
+        _, inv_z_h, z_last, l_first, l_last = (a[block] for a in _domain_arrays(n_log, rate, dev))
+        t_nxt = _next_rows(t_lde, step, mesh)
+        a_nxt = _next_rows(a_lde, step, mesh)
         acc_parts = []
-        for lo in range(0, N, C):
+        for lo in range(0, N // D, C):
             sl = slice(lo, lo + C)
             acc_parts.append(
                 chunk_eval(
@@ -256,18 +299,60 @@ def _make_quotient(stark: Stark, n_log: int, config: StarkConfig):
                 )
             )
         accs = torch.cat(acc_parts, dim=1)
-        shift_inv_pows = tensor_from_u64(shift_inv_pows_np, dev)
-        q_coeffs = gl.mul(ntt_cuda.intt(gl.mul(accs, inv_z_h[None])), shift_inv_pows[None])
+        shift_inv_pows = tensor_from_u64(shift_inv_pows_np[block], dev)
+        q_vals = gl.mul(accs, inv_z_h[None])
+        q_vals = ntt_cuda.intt(q_vals) if mesh is None else pntt.mesh_intt(q_vals, mesh)
+        q_coeffs = gl.mul(q_vals, shift_inv_pows[None])
+        if mesh is not None:
+            return _split_degree(q_coeffs, mesh)
         return torch.stack([half for q in q_coeffs for half in (q[:n], q[n:])])
 
     return quotient_core
 
 
-def _openings(coeffs: torch.Tensor, z):
+def _next_rows(lde: torch.Tensor, step: int, mesh: Mesh = None) -> torch.Tensor:
+    """The LDE at the next row's points, x -> x g: a roll by `step` points;
+    on a mesh the first `step` points of the next rank's block (rank 0's
+    for the last rank) close this rank's block."""
+    if mesh is None:
+        return torch.roll(lde, -step, dims=1)
+    heads = all_gather(mesh, lde[:, :step], axis=1)  # [k, D * step]
+    nxt = (mesh.rank + 1) % mesh.size
+    return torch.cat([lde[:, step:], heads[:, nxt * step : (nxt + 1) * step]], dim=1)
+
+
+def _split_degree(q: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's block [k, N/D] of the quotient polynomials' N
+    coefficients -> its block [2k, n/D] of their halves (q[:n], q[n:]) per
+    polynomial, as the single-device split orders them.  Rank r = h D/2 + a
+    holds half h's coefficients [2a, 2a + 2) n/D: its two n/D pieces go to
+    ranks 2a and 2a + 1; rank t receives half 0 from rank t // 2 and half 1
+    from rank D/2 + t // 2."""
+    D, r = mesh.size, mesh.rank
+    k, nb2 = q.shape
+    nb = nb2 // 2
+    a = r % (D // 2)
+    empty = q.new_empty((k, 0))
+    pieces = [empty] * D
+    pieces[2 * a], pieces[2 * a + 1] = q[:, :nb], q[:, nb:]
+    sources = (r // 2, D // 2 + r // 2)
+    got = exchange(mesh, pieces, [(k, nb) if s in sources else (k, 0) for s in range(D)])
+    return torch.stack([got[sources[0]], got[sources[1]]], dim=1).reshape(2 * k, nb)
+
+
+def _openings(coeffs: torch.Tensor, z, mesh: Mesh = None):
     """[2, k]: (c0, c1) of f_i(z) for every row of `coeffs` ([k, n]); `z` a
-    host `GLExt` or an `Ext` of 0-d tensors."""
-    p = _ext_powers(z, coeffs.shape[-1], coeffs.device)
-    return torch.stack([_mod_dot(coeffs, p.c0), _mod_dot(coeffs, p.c1)])
+    host `GLExt` or an `Ext` of 0-d tensors.  On a mesh `coeffs` is this
+    rank's block [k, n/D] and `z` a host `GLExt`: each rank sums its terms
+    z^(r n/D + t) c_t, and the D partial sums are gathered and added mod p."""
+    nb = coeffs.shape[-1]
+    p = _ext_powers(z, nb, coeffs.device)
+    if mesh is not None:
+        p = ext_scale(p, z.exp(mesh.rank * nb))
+    out = torch.stack([_mod_dot(coeffs, p.c0), _mod_dot(coeffs, p.c1)])
+    if mesh is None:
+        return out
+    return cons.tree_reduce0(all_gather(mesh, out[None], axis=0))
 
 
 @functools.lru_cache(maxsize=None)
@@ -283,13 +368,16 @@ def _ext_const(z, device) -> Ext:
                torch.full((), gl.i64(z.c1), dtype=torch.int64, device=device))
 
 
-def _fri_oracle(lde_batches, alpha_pows, s_zeta, s_zeta_g, zeta, zeta_g, alpha_off):
+def _fri_oracle(lde_batches, alpha_pows, s_zeta, s_zeta_g, zeta, zeta_g, alpha_off,
+                mesh: Mesh = None):
     """F = (S - S(zeta)) / (x - zeta) + alpha^n (S - S(zeta g)) / (x - zeta g)
     on the LDE coset, with S = sum_j alpha^j f_j.  `alpha_pows`: [n_polys, 2]
     rows (c0, c1) of alpha^j (a tensor, or host values); the scalars are host
-    `GLExt`s or `Ext`s of 0-d tensors."""
+    `GLExt`s or `Ext`s of 0-d tensors.  On a mesh the LDEs are this rank's
+    blocks, and every rank gets the whole F (one gather of [2, N])."""
     dev = lde_batches[0].device
     N = lde_batches[0].shape[-1]
+    block = slice(0, N) if mesh is None else slice(mesh.rank * N, (mesh.rank + 1) * N)
     if not isinstance(alpha_pows, torch.Tensor):
         alpha_pows = tensor_from_u64(np.array(alpha_pows, dtype=np.uint64), dev)
     s_zeta, s_zeta_g, zeta, zeta_g, alpha_off = (
@@ -305,7 +393,9 @@ def _fri_oracle(lde_batches, alpha_pows, s_zeta, s_zeta_g, zeta, zeta_g, alpha_o
         S1 = gl.add(S1, cons.tree_reduce0(gl.mul(lde, ap[:, 1:2])))
         off += k
     assert off == alpha_pows.shape[0]
-    xs = gl.mul_const(tensor_from_u64(_xs_np(N), dev), gl.MULTIPLICATIVE_GROUP_GENERATOR)
+    n_all = N if mesh is None else N * mesh.size
+    xs = gl.mul_const(tensor_from_u64(_xs_np(n_all)[block], dev),
+                      gl.MULTIPLICATIVE_GROUP_GENERATOR)
 
     def reduced(point: Ext, s_at: Ext) -> Ext:
         d0 = gl.sub(xs, point.c0)
@@ -318,7 +408,10 @@ def _fri_oracle(lde_batches, alpha_pows, s_zeta, s_zeta_g, zeta, zeta_g, alpha_o
 
     b = reduced(zeta, s_zeta)
     bg = ext_scale(reduced(zeta_g, s_zeta_g), alpha_off)
-    return Ext(gl.add(b.c0, bg.c0), gl.add(b.c1, bg.c1))
+    F = Ext(gl.add(b.c0, bg.c0), gl.add(b.c1, bg.c1))
+    if mesh is None:
+        return F
+    return Ext(*all_gather(mesh, torch.stack(F), axis=1))
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +461,7 @@ def prove(
     config: StarkConfig,
     timing: "timing_mod.TimingTree" = None,
     device_fs: bool = None,
+    mesh: Mesh = None,
 ) -> Proof:
     """Prove `trace_rows` ([n, width] int64 residues) on its device.
 
@@ -375,6 +469,13 @@ def prove(
     (`_prove_device_fs`); None, the default, means device FS for a trace on
     CUDA and the host challenger on the CPU, as the reference defaults to
     its device flow on the accelerator.  Both flows give the same proof.
+
+    `mesh` (`parallel.mesh.make_mesh`): every rank of the mesh calls
+    `prove` with the whole trace (on any device, the host included) and
+    keeps only its block of n/D rows, on `mesh.device`; every rank returns
+    the same proof, equal to the single-device one.  The mesh path takes
+    the host transcript and rate 1 (as the reference's explicit mesh path),
+    and needs D a power of two >= 2 with n a multiple of D^2.
     """
     tt = timing_mod.get(timing)
     n, w = trace_rows.shape
@@ -382,17 +483,22 @@ def prove(
     n_log = n.bit_length() - 1
     assert n == 1 << n_log
     rate = config.rate_bits
-    dev = trace_rows.device
-    trace_cols = trace_rows.T.contiguous()
-    if device_fs is None:
-        device_fs = dev.type == "cuda"
-    if device_fs:
-        return _prove_device_fs(stark, trace_cols, ctl_values, config, tt)
+    if mesh is None:
+        dev = trace_rows.device
+        trace_cols = trace_rows.T.contiguous()
+        if device_fs is None:
+            device_fs = dev.type == "cuda"
+        if device_fs:
+            return _prove_device_fs(stark, trace_cols, ctl_values, config, tt)
+    else:
+        _check_mesh(mesh, n, config, device_fs)
+        dev = mesh.device
+        trace_cols = shard_rows(mesh, trace_rows).T.contiguous()
 
     # ---- S1: trace commit ---------------------------------------------
     with tt.scope("trace commit"):
-        t_coeffs, t_lde, t_levels = commit_values(trace_cols, config, tt)
-        trace_cap = u64_from_tensor(t_levels[-1])
+        t_coeffs, t_lde, t_levels = commit_values(trace_cols, config, tt, mesh)
+        trace_cap = u64_from_tensor(_cap(t_levels))
     ch = Challenger()
     ch.observe_element(n_log)
     ch.observe_cap(trace_cap)
@@ -415,12 +521,12 @@ def prove(
 
     # ---- S2: aux columns + commit -------------------------------------
     with tt.scope("aux"):
-        aux_cols = _make_aux(stark)(
+        aux_cols = _make_aux(stark, mesh)(
             trace_cols, [b for b, _ in challenges], [g for _, g in challenges],
             ctl_weight_specs,
         )
-        a_coeffs, a_lde, a_levels = commit_values(aux_cols, config)
-        aux_cap = u64_from_tensor(a_levels[-1])
+        a_coeffs, a_lde, a_levels = commit_values(aux_cols, config, mesh=mesh)
+        aux_cap = u64_from_tensor(_cap(a_levels))
     ch.observe_cap(aux_cap)
     del aux_cols, trace_cols  # queries read the LDEs, not the values
 
@@ -435,12 +541,12 @@ def prove(
         alpha_pows = tensor_from_u64(
             np.stack([gl.powers(a, 513) for a in alphas]), dev
         )
-        q_chunks = _make_quotient(stark, n_log, config)(
+        q_chunks = _make_quotient(stark, n_log, config, mesh)(
             t_lde, a_lde, alphas, alpha_pows, challenges, ctl_totals,
             [[wt for (_, wt) in per_ch] for per_ch in ctl_weight_specs],
         )
-        q_lde, q_levels = commit_coeffs(q_chunks, config)
-        quotient_cap = u64_from_tensor(q_levels[-1])
+        q_lde, q_levels = commit_coeffs(q_chunks, config, mesh)
+        quotient_cap = u64_from_tensor(_cap(q_levels))
     ch.observe_cap(quotient_cap)
 
     # ---- S4: openings --------------------------------------------------
@@ -450,7 +556,7 @@ def prove(
 
     with tt.scope("openings"):
         openings = _openings_from_rows([
-            u64_from_tensor(_openings(coeffs, z))
+            u64_from_tensor(_openings(coeffs, z, mesh))
             for coeffs in (t_coeffs, a_coeffs, q_chunks)
             for z in (zeta, zeta_g)
         ])
@@ -481,7 +587,7 @@ def prove(
     with tt.scope("fri oracle"):
         F = _fri_oracle(
             [t_lde, a_lde, q_lde], alpha_pows_rows, horner(vals_zeta),
-            horner(vals_zeta_g), zeta, zeta_g, fri_alpha.exp(n_polys),
+            horner(vals_zeta_g), zeta, zeta_g, fri_alpha.exp(n_polys), mesh,
         )
 
     with tt.scope("fri"):
@@ -492,14 +598,9 @@ def prove(
     # initial tree openings per query: rows and sibling paths gathered on
     # the device; only ~Q * (width + 4 * height) values reach the host.
     with tt.scope("query extraction"):
-        idx_np = np.array(query_indices, dtype=np.int64)
-        nat = torch.from_numpy(bit_rev_perm(n_log + rate)[idx_np].astype(np.int64)).to(dev)
-        idx = torch.from_numpy(idx_np).to(dev)
-        query_initials = _per_query([
-            (u64_from_tensor(lde[:, nat].T),
-             [u64_from_tensor(p) for p in gather_paths_dev(levels, idx)])
-            for lde, levels in ((t_lde, t_levels), (a_lde, a_levels), (q_lde, q_levels))
-        ], len(query_indices))
+        query_initials = _query_initials(
+            query_indices, ((t_lde, t_levels), (a_lde, a_levels), (q_lde, q_levels)),
+            n_log + rate, dev, mesh)
 
     return Proof(
         degree_bits=n_log,
@@ -512,6 +613,40 @@ def prove(
         query_initials=query_initials,
         fri_query_layers=fri_query_layers,
     )
+
+
+def _check_mesh(mesh: Mesh, n: int, config: StarkConfig, device_fs) -> None:
+    D = mesh.size
+    if device_fs:
+        raise ValueError("prove: device_fs=True on a mesh is not supported "
+                         "(the mesh path takes the host transcript)")
+    if config.rate_bits != 1:
+        raise ValueError(f"prove: the mesh path needs rate_bits = 1, got {config.rate_bits}")
+    if D < 2 or D & (D - 1):
+        raise ValueError(f"prove: the mesh needs a power of two >= 2 ranks, got {D}")
+    if n % (D * D):
+        raise ValueError(f"prove: {n} rows are not a multiple of D^2 = {D * D}")
+
+
+def _query_initials(query_indices, batches, n_big_log: int, dev, mesh: Mesh = None):
+    """Per query, the queried leaf row and its Merkle path in each (LDE,
+    tree) batch, gathered on the device; on a mesh the row comes from the
+    rank whose LDE block holds the point, the path from the rank whose leaf
+    block holds the leaf (`ShardedTree.paths`)."""
+    idx_np = np.array(query_indices, dtype=np.int64)
+    idx = torch.from_numpy(idx_np).to(dev)
+    nat = torch.from_numpy(bit_rev_perm(n_big_log)[idx_np].astype(np.int64)).to(dev)
+    out = []
+    for lde, levels in batches:
+        if mesh is None:
+            rows, paths = lde[:, nat].T, gather_paths_dev(levels, idx)
+        else:
+            nb = lde.shape[-1]
+            every = all_gather(mesh, lde[:, nat % nb].T[None], axis=0)  # [D, Q, k]
+            rows = every[nat // nb, torch.arange(idx.shape[0], device=dev)]
+            paths = levels.paths(idx, mesh)
+        out.append((u64_from_tensor(rows), [u64_from_tensor(p) for p in paths]))
+    return _per_query(out, len(query_indices))
 
 
 def _openings_from_rows(rows) -> Openings:

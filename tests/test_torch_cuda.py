@@ -328,3 +328,46 @@ def test_compose_three_kinds_on_card(card):
         p_bad, pub_bad = outer.prove_outer(data, bad, TEST_CONFIG)
         with pytest.raises(VerificationError):
             outer.verify_outer(data, p_bad, pub_bad, TEST_CONFIG)
+
+
+def test_mesh_transforms_on_two_gloo_ranks_on_one_card(card):
+    """Two gloo ranks share the card (their blocks on cuda:0, exchanged
+    through the host): mesh_ntt, mesh_intt and mesh_coset_lde_rate1 at
+    [8, 2^12] equal the single-device kernels' transforms, and
+    distributed_ntt of the [64, 512] view equals single_device_reference,
+    with K3 launched on each rank."""
+    from plonky2_bn254_tpu_torch.parallel import launch
+    from plonky2_bn254_tpu_torch.parallel import ntt as pntt
+    from torch_parallel_case import card_rank_case
+
+    x = np.random.default_rng(12).integers(0, gl.P, size=(8, 1 << 12), dtype=np.uint64)
+    kernels.library()  # built once here, loaded by the ranks
+    ranks = launch.run(card_rank_case, 2, x, timeout=600)
+    xt = tensor_from_u64(x, card)
+    want = {"mesh_ntt": ntt_cuda.ntt(xt), "mesh_intt": ntt_cuda.intt(xt),
+            "mesh_lde": ntt_cuda.coset_lde(xt, 1)}
+    for key, w in want.items():
+        got = np.concatenate([r[key] for r in ranks], axis=1)
+        np.testing.assert_array_equal(got, w.cpu().numpy().view(np.uint64), err_msg=key)
+    got = np.concatenate([r["distributed_ntt"] for r in ranks], axis=0)
+    want = pntt.single_device_reference(tensor_from_u64(x.reshape(64, -1), card))
+    np.testing.assert_array_equal(got, want.cpu().numpy().view(np.uint64))
+    for r in ranks:
+        assert (r["device"], r["wire"]) == ("cuda:0", "cpu")
+        assert r["K3"] == 6  # mesh_ntt, mesh_intt, the LDE's two NTTs, distributed_ntt's two
+
+
+def test_nccl_ranks_sharing_one_card_raise(card):
+    """make_mesh refuses an NCCL group whose ranks share a card, before any
+    NCCL collective could hang."""
+    import torch.distributed as dist
+
+    from plonky2_bn254_tpu_torch.parallel import launch
+    from torch_parallel_case import nccl_rank_case
+
+    if not dist.is_nccl_available():
+        pytest.skip("this torch has no NCCL")
+    if torch.cuda.device_count() > 1:
+        pytest.skip("two cards: the ranks would not share one")
+    with pytest.raises(RuntimeError, match="share a card"):
+        launch.run(nccl_rank_case, 2, backend="nccl", timeout=300)

@@ -30,7 +30,8 @@ def test_port_imports_no_jax():
     for m in ("builder", "biguint", "fq", "fq2", "curves", "to_u16", "ext_target",
               "poseidon_gadget", "stark_verifier", "builder_ops", "outer", "msm", "hash_to_g2"):
         assert f"plonky2_bn254_tpu_torch.circuit.{m}" in mods, m
-    for m in ("field.native", "prover.device_challenger"):
+    for m in ("field.native", "prover.device_challenger", "parallel", "parallel.mesh",
+              "parallel.ntt", "parallel.launch"):
         assert f"plonky2_bn254_tpu_torch.{m}" in mods, m
     assert "plonky2_bn254_tpu_torch.circuit" in mods
     code = (
@@ -150,6 +151,23 @@ def test_challenger_and_constants_copies_equal_original():
         if x % 4 == 0:
             assert a.get_extension_challenge().c1 == b.get_extension_challenge().c1
     assert (a.state, a.input_buffer, a.output_buffer) == (b.state, b.input_buffer, b.output_buffer)
+
+
+@pytest.mark.parametrize("n1_log, n2_log", [(1, 1), (3, 4), (6, 7)])
+def test_parallel_ntt_tables_equal_original(n1_log, n2_log):
+    """The mesh transforms' host tables, copied from the JAX package's
+    parallel/ntt.py, by value in both directions."""
+    from plonky2_bn254_tpu.parallel import ntt as orig
+    from plonky2_bn254_tpu_torch.parallel import ntt as copy
+
+    for inverse in (False, True):
+        np.testing.assert_array_equal(copy._twiddle_matrix(n1_log, n2_log, inverse),
+                                      orig._twiddle_matrix(n1_log, n2_log, inverse))
+        n_log, d_log = n1_log + n2_log, min(n1_log, n2_log)
+        np.testing.assert_array_equal(copy._dftD_matrix(n_log, d_log, inverse),
+                                      orig._dftD_matrix(n_log, d_log, inverse))
+        np.testing.assert_array_equal(copy._mid_twiddle(n_log, d_log, inverse),
+                                      orig._mid_twiddle(n_log, d_log, inverse))
 
 
 def test_timing_copy_records_scopes():
