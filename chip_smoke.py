@@ -35,16 +35,25 @@ Phases (any failure exits non-zero before the result line):
      trace (written once to a file the ranks map, so no rank builds it)
      proved at DEFAULT_CONFIG by prove(..., mesh=...) on 4 ranks of a gloo
      group spawned on the one card (parallel/launch.py, file init in a
-     temporary directory; the kernel library already built), twice, each
+     temporary directory; the kernel library already built), the cases of
+     MESH_CASES in turn: on the 1-D mesh twice with the host transcript and
+     once with the device transcript, on the (2, 2) mesh of make_mesh2d
+     with the rows over ("tp", "dp"), and with the rows over dp and the
+     columns over tp (427 does not split over 2: replicated), then
+     keyed_demo at TEST_CONFIG with its 6 columns split over tp; each
      rank's launch counts set to 0 just before each proof and read just
-     after: every rank's proof equals the path's host-FS proof field by
-     field, K1, K2 and K3 launched on every rank (K4 and K2t not: the mesh
-     commits are two mesh NTTs, the transcript the host's), the proof
-     verifies and is rejected with one opening flipped; printed: the
-     barrier-to-barrier wall of each sharded proof and its commit scopes,
-     each rank's peak device memory beside the single-device host-FS
-     proof's, and the bytes each rank sent beside the model of the mesh
-     transforms; the ranks' kernels.CALLS join the kernel phase as "mesh";
+     after: every rank's proof equals the single-device proof field by
+     field (fq_exp: the path's host-FS proof), K1, K2 and K3 launched on
+     every rank, K4 never (the mesh LDE is two mesh NTTs), K2 never at
+     [1, 12], K2t (at most 16 times) only in the device-FS proof; each proof
+     verifies and is rejected with one opening flipped; printed per case:
+     the barrier-to-barrier wall and rank 0's stages, each rank's peak
+     device memory beside the single-device host-FS proof's, the bytes each
+     rank sent (by axis on the 2-D mesh; the 1-D host proof's beside the
+     model of the mesh transforms) and, for device FS, the synchronising
+     operations by site (torch.cuda sync debug mode, which the device-FS
+     wall includes); every rank's kernels.CALLS join the kernel phase as
+     "mesh";
   6. the compose path, the circuit API's production product (as
      scripts/prove_compose_default.py and scripts/bench_outer.py define it):
      two fq_exp ops from numpy.random.default_rng(123) recorded on a
@@ -114,8 +123,20 @@ H2G_INPUTS = 4
 MAX_TRANSITIONS = 16  # K2t launches a device-FS machine proof may take
 MESH_PATH = "fq_exp"
 MESH_RANKS = 4
-MESH_PROOFS = 2  # the first meets cold tables
-MESH_TIMEOUT_S = 400
+MESH_KEYED_SEED = 21
+# (name, machine, make_mesh2d shape or None for the 1-D mesh, prove keywords);
+# the first proof meets cold tables
+MESH_CASES = (
+    ("1-D host FS", "fq_exp", None, {}),
+    ("1-D host FS again", "fq_exp", None, {}),
+    ("1-D device FS", "fq_exp", None, {"device_fs": True}),
+    ("(2, 2) rows over (tp, dp)", "fq_exp", (2, 2), {"mesh_axis": ("tp", "dp")}),
+    ("(2, 2) rows over dp, columns over tp", "fq_exp", (2, 2),
+     {"mesh_axis": "dp", "col_axis": "tp"}),
+    ("keyed_demo (2, 2) rows over dp, columns over tp", "keyed_demo", (2, 2),
+     {"mesh_axis": "dp", "col_axis": "tp"}),
+)
+MESH_TIMEOUT_S = 500
 
 KERNELS = {
     "K1": ("hash_leaves", "plonky2_bn254_tpu_torch/csrc/poseidon.cu",
@@ -610,42 +631,52 @@ def first_proof(path: Path) -> dict:
             "host_fs_calls": host_run["calls"]}
 
 
-def mesh_rank(rank: int, world: int, trace_file: str, ctl_values, n_proofs: int) -> dict:
-    """One rank of the mesh phase, in a spawned process: the mesh on the
-    card's default device (every rank on cuda:0, gloo moving host
-    tensors), then `n_proofs` proofs of the mapped trace, each between two
-    barriers with the launch counts set to 0 just before it and read just
-    after."""
+def mesh_rank(rank: int, world: int, trace_file: str, ctl_values, cases) -> dict:
+    """One rank of the mesh phase, in a spawned process: the 1-D mesh and
+    the (2, 2) mesh over ("tp", "dp") on the card's default device (every
+    rank on cuda:0, gloo moving host tensors), then each of `cases` (see
+    MESH_CASES) between two barriers with the launch counts set to 0 just
+    before it and read just after; the device-FS proof's synchronising
+    operations counted by site."""
     import torch.distributed as dist
 
     from plonky2_bn254_tpu_torch import kernels
     from plonky2_bn254_tpu_torch.interop import proof_to_fields
-    from plonky2_bn254_tpu_torch.parallel.mesh import make_mesh
+    from plonky2_bn254_tpu_torch.parallel.mesh import make_mesh, make_mesh2d
     from plonky2_bn254_tpu_torch.prover import prove as prove_mod
-    from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG
-    from plonky2_bn254_tpu_torch.starks import table
+    from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG, TEST_CONFIG
+    from plonky2_bn254_tpu_torch.starks import demo, table
     from plonky2_bn254_tpu_torch.utils.timing import TimingTree
 
-    mesh = make_mesh(world)
-    trace = torch.from_numpy(np.load(trace_file, mmap_mode="c"))  # each rank reads its rows
-    stark = table.fq_exp_stark()
+    meshes = {None: make_mesh(world), (2, 2): make_mesh2d((2, 2))}
+    keyed_trace, keyed_ctl = demo.keyed_demo_trace(np.random.default_rng(MESH_KEYED_SEED))
+    machines = {
+        "fq_exp": (table.fq_exp_stark(), torch.from_numpy(np.load(trace_file, mmap_mode="c")),
+                   ctl_values, DEFAULT_CONFIG),  # each rank reads its rows of the mapped trace
+        "keyed_demo": (demo.keyed_demo_stark(), keyed_trace, keyed_ctl, TEST_CONFIG),
+    }
+    mesh = meshes[None]
     proofs = []
-    for _ in range(n_proofs):
+    for _, machine, shape, kw in cases:
+        stark, trace, ctl, config = machines[machine]
+        m = meshes[shape]
         tt = TimingTree(enabled=True)
         torch.cuda.synchronize(mesh.device)
         torch.cuda.reset_peak_memory_stats(mesh.device)
-        mesh.reset_stats()
+        m.reset_stats()
         dist.barrier()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        proof = prove_mod.prove(stark, trace, ctl_values, DEFAULT_CONFIG, timing=tt, mesh=mesh)
+        run = lambda: prove_mod.prove(stark, trace, ctl, config, timing=tt, mesh=m, **kw)
+        proof, sites = count_syncs(run) if kw.get("device_fs") else (run(), Counter())
         torch.cuda.synchronize(mesh.device)
         launches = dict(kernels.LAUNCHES)
         calls = {k: dict(kernels.CALLS[k]) for k in kernels.KERNEL_IDS}
         dist.barrier()
         proofs.append({"wall_s": time.perf_counter() - t0, "scopes": tt.records,
                        "peak_gb": gb(torch.cuda.max_memory_allocated(mesh.device)),
-                       "stats": dict(mesh.stats), "launches": launches, "calls": calls,
+                       "stats": m.stats, "launches": launches, "calls": calls,
+                       "syncs": sum(sites.values()), "sync_sites": dict(sites),
                        "fields": proof_to_fields(proof)})
     return {"device": str(mesh.device), "backend": mesh.backend, "wire": str(mesh.wire),
             "proofs": proofs}
@@ -663,76 +694,125 @@ def mesh_model_bytes(stark_width: int, fields: dict, n_log: int, D: int) -> int:
     return 3 * 8 * words * (D - 1) // D
 
 
+def check_mesh_case(name: str, machine: str, kw: dict, ranks: list, i: int, want: str) -> None:
+    """Case `i` on every rank: the single-device proof; K1, K2 and K3
+    launched, K4 not, K2 never at [1, 12], K2t (at most MAX_TRANSITIONS
+    times) only with the device transcript; the trace's columns split over
+    tp (one gather there) only where its width divides."""
+    device_fs = bool(kw.get("device_fs"))
+    for r, res in enumerate(ranks):
+        p = res["proofs"][i]
+        if json.dumps(p["fields"], default=lambda v: v.tolist()) != want:
+            raise AssertionError(f"mesh {name}, rank {r}: differs from the single-device proof")
+        n = p["launches"]
+        k2t_ok = 0 < n["K2t"] <= MAX_TRANSITIONS if device_fs else n["K2t"] == 0
+        if (min(n["K1"], n["K2"], n["K3"]) <= 0 or n["K4"] or not k2t_ok
+                or p["calls"]["K2"].get((1,), 0)):
+            raise AssertionError(f"mesh {name}, rank {r}: launches {n}, K2 keys {p['calls']['K2']}")
+        if "col_axis" in kw:
+            tp = p["stats"]["by_axes"]["tp"]
+            sharded = machine == "keyed_demo"  # width 6 splits over 2; fq_exp's 427 does not
+            if (tp["gathers"], tp["bytes_sent"] > 0) != ((1, True) if sharded else (0, False)):
+                raise AssertionError(f"mesh {name}, rank {r}: tp stats {tp}")
+
+
 def mesh_phase(path, single: dict, card: str) -> dict:
     """The mesh phase (5m of the module docstring); `single`: the path's
-    first_proof record.  Fails unless every rank's proof equals the
-    single-device host-FS proof and every rank launched K1, K2 and K3."""
+    first_proof record.  Fails unless every case's proof on every rank
+    equals its single-device proof, verifies, is rejected with one opening
+    flipped, and launched what check_mesh_case asks."""
     from plonky2_bn254_tpu_torch.field.extension import GLExt
-    from plonky2_bn254_tpu_torch.interop import proof_from_fields
+    from plonky2_bn254_tpu_torch.interop import proof_from_fields, proof_to_fields
     from plonky2_bn254_tpu_torch.parallel import launch
+    from plonky2_bn254_tpu_torch.prover import prove as prove_mod
     from plonky2_bn254_tpu_torch.prover import verify as verify_mod
+    from plonky2_bn254_tpu_torch.prover.config import TEST_CONFIG
+    from plonky2_bn254_tpu_torch.starks import demo
 
-    log(f"# mesh: {path.name} 2^16 x {path.stark.width} at DEFAULT_CONFIG on {MESH_RANKS} gloo "
-        f"ranks sharing the card ({card})")
+    log(f"# mesh: {path.name} 2^16 x {path.stark.width} at DEFAULT_CONFIG and keyed_demo at "
+        f"TEST_CONFIG on {MESH_RANKS} gloo ranks sharing the card ({card})")
+    keyed_trace, keyed_ctl = demo.keyed_demo_trace(np.random.default_rng(MESH_KEYED_SEED))
+    keyed = demo.keyed_demo_stark()
+    keyed_single = prove_mod.prove(keyed, keyed_trace.to(path.device), keyed_ctl, TEST_CONFIG)
+    want = {"fq_exp": path.host_fs_json,
+            "keyed_demo": json.dumps(proof_to_fields(keyed_single), default=lambda v: v.tolist())}
+
+    def verify(machine, proof):
+        if machine == "fq_exp":
+            path.verify(proof)
+        else:
+            verify_mod.verify(keyed, proof, keyed_ctl, TEST_CONFIG)
+
     with tempfile.TemporaryDirectory() as tmp:
         trace_file = os.path.join(tmp, "trace.npy")
         np.save(trace_file, path.mesh_trace.cpu().numpy())
         del path.mesh_trace
         t0 = time.perf_counter()
-        ranks = launch.run(mesh_rank, MESH_RANKS, trace_file, path.ctl_values, MESH_PROOFS,
+        ranks = launch.run(mesh_rank, MESH_RANKS, trace_file, path.ctl_values, MESH_CASES,
                            timeout=MESH_TIMEOUT_S)
         spawn_to_end = time.perf_counter() - t0
     for r, res in enumerate(ranks):
         if (res["device"], res["backend"], res["wire"]) != ("cuda:0", "gloo", "cpu"):
             raise AssertionError(f"mesh rank {r}: {res['device']}, {res['backend']}, {res['wire']}")
-        for i, p in enumerate(res["proofs"]):
-            if json.dumps(p["fields"], default=lambda v: v.tolist()) != path.host_fs_json:
-                raise AssertionError(f"mesh rank {r}, proof {i}: differs from the host-FS proof")
-            missing = [k for k in ("K1", "K2", "K3") if p["launches"][k] <= 0]
-            if missing or p["launches"]["K2t"]:
-                raise AssertionError(f"mesh rank {r}, proof {i}: launches {p['launches']}")
-    log(f"  every rank's {MESH_PROOFS} proofs equal the single-device host-FS proof field by field; "
-        f"K1, K2, K3 launched on every rank")
-    proof = proof_from_fields(ranks[0]["proofs"][0]["fields"])
-    path.verify(proof)
-    proof.openings.trace_zeta[0] = proof.openings.trace_zeta[0] + GLExt(1)
-    try:
-        path.verify(proof)
-    except verify_mod.VerificationError as e:
-        log(f"  sharded proof verified; with a flipped opening rejected: {e}")
-    else:
-        raise AssertionError("mesh: a sharded proof with a flipped opening was accepted")
-
-    walls = [max(res["proofs"][i]["wall_s"] for res in ranks) for i in range(MESH_PROOFS)]
-    peaks = [res["proofs"][-1]["peak_gb"] for res in ranks]
-    sent = [res["proofs"][-1]["stats"]["bytes_sent"] for res in ranks]
-    model = mesh_model_bytes(path.stark.width, ranks[0]["proofs"][0]["fields"], 16, MESH_RANKS)
-    scopes = ranks[0]["proofs"][-1]["scopes"]
-    log(f"  synchronised wall (barrier to barrier) {', '.join(f'{w:.3f}' for w in walls)} s; "
-        f"spawn to last result {spawn_to_end:.1f} s; rank 0 stages of the last proof:")
-    for depth, stage, secs in scopes:
-        log(f"    {'  ' * depth}{secs:8.3f}s  {stage}")
-    host = single["host_fs_stages_s"]
-    top = {stage: secs for depth, stage, secs in scopes if depth == 0}
-    log("  stages, mesh rank 0 / single-device host FS (s): " + ", ".join(
-        f"{k} {top.get(k, 0):.3f} / {host.get(k, 0):.3f}" for k in top)
-        + f", proof {walls[-1]:.3f} / {host['proof']:.3f}")
     single_peak_gb = single["host_fs"]["peak_gb"]
-    log(f"  peak device memory per rank {[round(x, 2) for x in peaks]} GB; the single-device "
-        f"host-FS proof {single_peak_gb:.2f} GB")
-    log(f"  bytes sent per rank {sent} (exchanges {ranks[0]['proofs'][-1]['stats']['exchanges']}, "
-        f"gathers {ranks[0]['proofs'][-1]['stats']['gathers']}); the reference's model of the "
-        f"mesh transforms {model} per rank")
+    log(f"  spawn to last result {spawn_to_end:.1f} s; the single-device host-FS proof "
+        f"{single['host_fs_stages_s']['proof']:.3f} s (synchronised stages), peak "
+        f"{single_peak_gb:.2f} GB")
+    records = []
+    for i, (name, machine, shape, kw) in enumerate(MESH_CASES):
+        check_mesh_case(name, machine, kw, ranks, i, want[machine])
+        proof = proof_from_fields(ranks[0]["proofs"][i]["fields"])
+        verify(machine, proof)
+        proof.openings.trace_zeta[0] = proof.openings.trace_zeta[0] + GLExt(1)
+        try:
+            verify(machine, proof)
+        except verify_mod.VerificationError:
+            pass
+        else:
+            raise AssertionError(f"mesh {name}: a proof with a flipped opening was accepted")
+        per_rank = [res["proofs"][i] for res in ranks]
+        rec = {"case": name, "machine": machine, "wall_s": max(p["wall_s"] for p in per_rank),
+               "peak_gb_per_rank": [p["peak_gb"] for p in per_rank],
+               "bytes_sent_per_rank": [p["stats"]["bytes_sent"] for p in per_rank],
+               "launches_per_rank": [p["launches"] for p in per_rank]}
+        if "by_axes" in per_rank[0]["stats"]:
+            rec["bytes_sent_by_axes_rank0"] = {k: v["bytes_sent"] for k, v in
+                                               per_rank[0]["stats"]["by_axes"].items()}
+        if kw.get("device_fs"):
+            rec["syncs_per_rank"] = [p["syncs"] for p in per_rank]
+            rec["sync_sites_rank0"] = per_rank[0]["sync_sites"]
+        records.append(rec)
+        top = {stage: secs for depth, stage, secs in per_rank[0]["scopes"] if depth == 0}
+        log(f"  {name}: equal to the single-device proof on every rank, verified, rejected with "
+            f"an opening flipped; wall (barrier to barrier) {rec['wall_s']:.3f} s; peak per rank "
+            f"{[round(x, 2) for x in rec['peak_gb_per_rank']]} GB; bytes sent per rank "
+            f"{rec['bytes_sent_per_rank']}; launches rank 0 {rec['launches_per_rank'][0]}")
+        log("    rank 0 stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in top.items()))
+        if "bytes_sent_by_axes_rank0" in rec:
+            log(f"    bytes sent by rank 0 over each axis {rec['bytes_sent_by_axes_rank0']}")
+        if "col_axis" in kw:
+            width = keyed.width if machine == "keyed_demo" else path.stark.width
+            log(f"    columns over tp: width {width} % 2 = {width % 2}: "
+                + ("sharded, one gather over tp" if width % 2 == 0
+                   else "replicated, nothing sent over tp"))
+        if "syncs_per_rank" in rec:
+            log(f"    synchronising operations per rank {rec['syncs_per_rank']}; rank 0 by site "
+                f"{dict(Counter(rec['sync_sites_rank0']).most_common())}")
     first = [res["proofs"][0] for res in ranks]
-    launches = {k: sum(p["launches"][k] for p in first) for k in first[0]["launches"]}
+    model = mesh_model_bytes(path.stark.width, first[0]["fields"], 16, MESH_RANKS)
+    log(f"  1-D host FS: bytes sent per rank {records[1]['bytes_sent_per_rank']}; the reference's "
+        f"model of the mesh transforms {model} per rank")
+    launches = Counter()
     calls = {k: Counter() for k in first[0]["calls"]}
-    for p in first:
-        for k, per_key in p["calls"].items():
-            calls[k].update(per_key)
-    return {"ranks": MESH_RANKS, "walls_s": walls, "spawn_to_end_s": spawn_to_end,
-            "scopes_s": scopes, "peak_gb_per_rank": peaks, "single_device_peak_gb": single_peak_gb,
-            "bytes_sent_per_rank": sent, "model_transform_bytes_per_rank": model,
-            "launches_per_rank": [p["launches"] for p in first], "launches": launches,
+    for res in ranks:
+        for p in res["proofs"]:
+            launches.update(p["launches"])
+            for k, per_key in p["calls"].items():
+                calls[k].update(per_key)
+    return {"ranks": MESH_RANKS, "cases": records, "spawn_to_end_s": spawn_to_end,
+            "scopes_s_1d_host_fs": ranks[0]["proofs"][1]["scopes"],
+            "single_device_peak_gb": single_peak_gb, "model_transform_bytes_per_rank": model,
+            "launches": {k: launches[k] for k in first[0]["launches"]},
             "calls": {k: dict(v) for k, v in calls.items()}}
 
 

@@ -17,14 +17,17 @@ Commits go through the hand kernels: iNTT (K3), coset LDE (K4) and the
 Merkle sponge (K1); the FRI grind uses K2, and each transition of the
 device transcript is one K2t launch.
 
-On a mesh (`prove(..., mesh=...)`, `parallel/mesh.py`) every rank runs this
-host-transcript flow on its contiguous block of the rows: the commits take
-the mesh iNTT and rate-1 LDE (`parallel/ntt.py`: all-to-alls around local K3
+On a mesh (`prove(..., mesh=...)`, `parallel/mesh.py`) every rank runs
+either flow on its contiguous block of the rows: the commits take the mesh
+iNTT and rate-1 LDE (`parallel/ntt.py`: all-to-alls around local K3
 transforms) and a sharded Merkle tree (K1), and the stages exchange only
 what crosses a block edge: suffix-sum totals, the next-row halo, opening
 partial sums, caps or subtree roots, and the one FRI column every rank then
-folds alike.  Every rank returns the same proof, equal to the
-single-device one.
+folds alike.  Every rank absorbs the same gathered caps, so every rank's
+transcript (host or device) is the same.  On a 2-D mesh the rows split
+over one axis or over both, and the trace's columns may split over the
+other axis until its commit gathers whole rows.  Every rank returns the
+same proof, equal to the single-device one.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from ..field import ntt, ntt_cuda
 from ..field.extension import Ext, GLExt
 from ..interop import tensor_from_u64, u64_from_tensor
 from ..parallel import ntt as pntt
-from ..parallel.mesh import Mesh, all_gather, exchange, shard_rows
+from ..parallel.mesh import Mesh, Mesh2D, all_gather, exchange, shard_rows
 from ..starks.air import GL, ConstraintConsumer, GLRing
 from ..starks.table import KeyedLookup, Stark
 from ..utils import timing as timing_mod
@@ -51,7 +54,7 @@ from . import fri as fri_mod
 from .challenger import Challenger
 from .config import StarkConfig
 from .merkle import ShardedTree, device_tree_levels, gather_paths_dev, sharded_tree
-from .poly_batch import bit_rev_perm, bit_rev_perm_dev, leaf_rows, sharded_leaf_rows
+from .poly_batch import bit_rev_perm_dev, leaf_rows, sharded_leaf_rows
 
 # Rows of the LDE coset per quotient chunk: bounds the plain-torch
 # temporaries of the constraint evaluation.
@@ -158,6 +161,30 @@ def commit_values(values: torch.Tensor, config: StarkConfig, tt=None, mesh: Mesh
     with tt.scope("merkle"):
         levels = _tree(lde, config, mesh)
     return coeffs, lde, levels
+
+
+def commit_trace(values: torch.Tensor, config: StarkConfig, tt=None, mesh: Mesh = None,
+                 col_mesh: Mesh = None):
+    """The trace commit: (values, coeffs, LDE, Merkle levels).  With
+    `col_mesh` the trace's columns are split over it too: the iNTT and LDE
+    run on this rank's [w/T, n/D] block over `mesh` (columns are
+    independent), then one gather over `col_mesh` regroups the values, the
+    coefficients and the LDE into whole rows, since a Merkle leaf is a whole
+    row and every later stage reads whole rows."""
+    if col_mesh is None:
+        return (values, *commit_values(values, config, tt, mesh))
+    tt = timing_mod.get(tt)
+    with tt.scope("intt"):
+        coeffs = pntt.mesh_intt(values, mesh)
+    with tt.scope("lde"):
+        lde = _lde(coeffs, config, mesh)
+    with tt.scope("column gather"):
+        nb = values.shape[1]
+        whole = all_gather(col_mesh, torch.cat([values, coeffs, lde], dim=1), axis=0)
+        values, coeffs, lde = (x.contiguous() for x in whole.split([nb, nb, 2 * nb], dim=1))
+    with tt.scope("merkle"):
+        levels = _tree(lde, config, mesh)
+    return values, coeffs, lde, levels
 
 
 def commit_coeffs(coeffs: torch.Tensor, config: StarkConfig, mesh: Mesh = None):
@@ -340,15 +367,49 @@ def _split_degree(q: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return torch.stack([got[sources[0]], got[sources[1]]], dim=1).reshape(2 * k, nb)
 
 
-def _openings(coeffs: torch.Tensor, z, mesh: Mesh = None):
+def _times_const(z, c: int):
+    """A host `GLExt` or an `Ext` of 0-d tensors times the residue `c`."""
+    if isinstance(z, GLExt):
+        return z.scalar_mul(c)
+    return Ext(gl.mul_const(z.c0, c), gl.mul_const(z.c1, c))
+
+
+def _ext_pow(z, e: int):
+    """z^e for a host `GLExt` or an `Ext` of 0-d tensors (square and
+    multiply)."""
+    if isinstance(z, GLExt):
+        return z.exp(e)
+    acc = Ext.one((), z.c0.device)
+    while e:
+        if e & 1:
+            acc = acc * z
+        e >>= 1
+        if e:
+            z = z * z
+    return acc
+
+
+def _block_offsets(zeta, g: int, nb: int, mesh: Mesh = None):
+    """(zeta^k, (zeta g)^k) for k = r nb, the power at which rank r's block
+    of nb coefficients starts: once per proof (for a device zeta a chain of
+    ~log2 k squarings), shared by the six `_openings` calls; (None, None)
+    off a mesh."""
+    if mesh is None:
+        return None, None
+    k = mesh.rank * nb
+    zk = _ext_pow(zeta, k)
+    return zk, _times_const(zk, pow(g, k, gl.P))
+
+
+def _openings(coeffs: torch.Tensor, z, mesh: Mesh = None, offset=None):
     """[2, k]: (c0, c1) of f_i(z) for every row of `coeffs` ([k, n]); `z` a
     host `GLExt` or an `Ext` of 0-d tensors.  On a mesh `coeffs` is this
-    rank's block [k, n/D] and `z` a host `GLExt`: each rank sums its terms
-    z^(r n/D + t) c_t, and the D partial sums are gathered and added mod p."""
-    nb = coeffs.shape[-1]
-    p = _ext_powers(z, nb, coeffs.device)
+    rank's block [k, n/D] and `offset` = z^(r n/D) (`_block_offsets`): each
+    rank sums its terms z^(r n/D + t) c_t, and the D partial sums are
+    gathered and added mod p."""
+    p = _ext_powers(z, coeffs.shape[-1], coeffs.device)
     if mesh is not None:
-        p = ext_scale(p, z.exp(mesh.rank * nb))
+        p = ext_scale(p, offset)
     out = torch.stack([_mod_dot(coeffs, p.c0), _mod_dot(coeffs, p.c1)])
     if mesh is None:
         return out
@@ -461,21 +522,30 @@ def prove(
     config: StarkConfig,
     timing: "timing_mod.TimingTree" = None,
     device_fs: bool = None,
-    mesh: Mesh = None,
+    mesh=None,
+    mesh_axis=None,
+    col_axis: str = None,
 ) -> Proof:
     """Prove `trace_rows` ([n, width] int64 residues) on its device.
 
     `device_fs` keeps the Fiat–Shamir transcript on the device
     (`_prove_device_fs`); None, the default, means device FS for a trace on
-    CUDA and the host challenger on the CPU, as the reference defaults to
-    its device flow on the accelerator.  Both flows give the same proof.
+    CUDA and the host challenger on the CPU or on a mesh, as the reference
+    defaults to its device flow on one accelerator.  Both flows give the
+    same proof.
 
-    `mesh` (`parallel.mesh.make_mesh`): every rank of the mesh calls
-    `prove` with the whole trace (on any device, the host included) and
-    keeps only its block of n/D rows, on `mesh.device`; every rank returns
-    the same proof, equal to the single-device one.  The mesh path takes
-    the host transcript and rate 1 (as the reference's explicit mesh path),
-    and needs D a power of two >= 2 with n a multiple of D^2.
+    `mesh` (`parallel.mesh.make_mesh` or `make_mesh2d`): every rank of the
+    mesh calls `prove` with the whole trace (on any device, the host
+    included) and keeps only its block of the rows, on `mesh.device`; every
+    rank returns the same proof, equal to the single-device one.  On a 2-D
+    mesh `mesh_axis` names the axis the rows split over, or an ordered
+    tuple of axes to split them over both (default "tp", as the
+    reference's); `col_axis` names an axis the trace's columns split over
+    for the trace commit's iNTT and LDE, or none (replicated) when the width
+    does not divide its size, as in the reference.  Ranks that differ only
+    along an axis neither names do the same work.  The mesh path takes rate
+    1 (as the reference's explicit mesh path), and needs the D ranks the
+    rows split over to be a power of two >= 2 with n a multiple of D^2.
     """
     tt = timing_mod.get(timing)
     n, w = trace_rows.shape
@@ -483,21 +553,26 @@ def prove(
     n_log = n.bit_length() - 1
     assert n == 1 << n_log
     rate = config.rate_bits
+    mesh, col_mesh = _resolve_mesh(mesh, mesh_axis, col_axis, w)
     if mesh is None:
         dev = trace_rows.device
         trace_cols = trace_rows.T.contiguous()
         if device_fs is None:
             device_fs = dev.type == "cuda"
-        if device_fs:
-            return _prove_device_fs(stark, trace_cols, ctl_values, config, tt)
     else:
-        _check_mesh(mesh, n, config, device_fs)
+        _check_mesh(mesh, n, config)
         dev = mesh.device
         trace_cols = shard_rows(mesh, trace_rows).T.contiguous()
+        if col_mesh is not None:
+            trace_cols = shard_rows(col_mesh, trace_cols)
+    if device_fs:
+        return _prove_device_fs(stark, trace_cols, ctl_values, config, tt, n_log, mesh,
+                                col_mesh)
 
     # ---- S1: trace commit ---------------------------------------------
     with tt.scope("trace commit"):
-        t_coeffs, t_lde, t_levels = commit_values(trace_cols, config, tt, mesh)
+        trace_cols, t_coeffs, t_lde, t_levels = commit_trace(trace_cols, config, tt, mesh,
+                                                             col_mesh)
         trace_cap = u64_from_tensor(_cap(t_levels))
     ch = Challenger()
     ch.observe_element(n_log)
@@ -555,10 +630,11 @@ def prove(
     zeta_g = zeta.scalar_mul(g)
 
     with tt.scope("openings"):
+        offsets = _block_offsets(zeta, g, t_coeffs.shape[-1], mesh)
         openings = _openings_from_rows([
-            u64_from_tensor(_openings(coeffs, z, mesh))
+            u64_from_tensor(_openings(coeffs, z, mesh, off))
             for coeffs in (t_coeffs, a_coeffs, q_chunks)
-            for z in (zeta, zeta_g)
+            for z, off in zip((zeta, zeta_g), offsets)
         ])
     del t_coeffs, a_coeffs  # openings done; only LDEs are queried below
     for vals, vals_g in openings.all_polys_order():
@@ -615,11 +691,31 @@ def prove(
     )
 
 
-def _check_mesh(mesh: Mesh, n: int, config: StarkConfig, device_fs) -> None:
+def _resolve_mesh(mesh, mesh_axis, col_axis, width: int):
+    """(the 1-D mesh the rows split over, the 1-D mesh the trace's columns
+    split over or None) for `prove`'s mesh arguments."""
+    if mesh is None:
+        if mesh_axis is not None or col_axis is not None:
+            raise ValueError("prove: mesh_axis and col_axis need a mesh")
+        return None, None
+    if isinstance(mesh, Mesh):
+        if col_axis is not None or mesh_axis not in (None, mesh.axis):
+            raise ValueError(f"prove: a 1-D mesh over {mesh.axis!r} has no axis "
+                             f"{mesh_axis!r} or {col_axis!r}")
+        return mesh, None
+    if not isinstance(mesh, Mesh2D):
+        raise TypeError(f"prove: mesh must be a parallel.mesh Mesh or Mesh2D, got {type(mesh)}")
+    rows = mesh.sub("tp" if mesh_axis is None else mesh_axis)
+    if col_axis is None:
+        return rows, None
+    if col_axis in rows.axis.split(","):
+        raise ValueError(f"prove: col_axis {col_axis!r} is an axis the rows split over")
+    cols = mesh.sub(col_axis)
+    return rows, (cols if width % cols.size == 0 else None)
+
+
+def _check_mesh(mesh: Mesh, n: int, config: StarkConfig) -> None:
     D = mesh.size
-    if device_fs:
-        raise ValueError("prove: device_fs=True on a mesh is not supported "
-                         "(the mesh path takes the host transcript)")
     if config.rate_bits != 1:
         raise ValueError(f"prove: the mesh path needs rate_bits = 1, got {config.rate_bits}")
     if D < 2 or D & (D - 1):
@@ -628,24 +724,31 @@ def _check_mesh(mesh: Mesh, n: int, config: StarkConfig, device_fs) -> None:
         raise ValueError(f"prove: {n} rows are not a multiple of D^2 = {D * D}")
 
 
-def _query_initials(query_indices, batches, n_big_log: int, dev, mesh: Mesh = None):
-    """Per query, the queried leaf row and its Merkle path in each (LDE,
-    tree) batch, gathered on the device; on a mesh the row comes from the
-    rank whose LDE block holds the point, the path from the rank whose leaf
-    block holds the leaf (`ShardedTree.paths`)."""
-    idx_np = np.array(query_indices, dtype=np.int64)
-    idx = torch.from_numpy(idx_np).to(dev)
-    nat = torch.from_numpy(bit_rev_perm(n_big_log)[idx_np].astype(np.int64)).to(dev)
+def _query_rows_paths(idx: torch.Tensor, batches, n_big_log: int, mesh: Mesh = None):
+    """Per (LDE, tree) batch, (rows [Q, k], sibling digests [Q, 4] per
+    level) of the queried leaves `idx` (a [Q] tensor), gathered on the
+    device; on a mesh the row comes from the rank whose LDE block holds the
+    point, the path from the rank whose leaf block holds the leaf
+    (`ShardedTree.paths`)."""
+    nat = bit_rev_perm_dev(n_big_log, idx.device)[idx]
     out = []
     for lde, levels in batches:
         if mesh is None:
-            rows, paths = lde[:, nat].T, gather_paths_dev(levels, idx)
-        else:
-            nb = lde.shape[-1]
-            every = all_gather(mesh, lde[:, nat % nb].T[None], axis=0)  # [D, Q, k]
-            rows = every[nat // nb, torch.arange(idx.shape[0], device=dev)]
-            paths = levels.paths(idx, mesh)
-        out.append((u64_from_tensor(rows), [u64_from_tensor(p) for p in paths]))
+            out.append((lde[:, nat].T, gather_paths_dev(levels, idx)))
+            continue
+        nb = lde.shape[-1]
+        every = all_gather(mesh, lde[:, nat % nb].T[None], axis=0)  # [D, Q, k]
+        rows = every[nat // nb, torch.arange(idx.shape[0], device=idx.device)]
+        out.append((rows, levels.paths(idx, mesh)))
+    return out
+
+
+def _query_initials(query_indices, batches, n_big_log: int, dev, mesh: Mesh = None):
+    """Per query, the queried leaf row and its Merkle path in each batch
+    (`_query_rows_paths` of host query indices), on the host."""
+    idx = torch.from_numpy(np.array(query_indices, dtype=np.int64)).to(dev)
+    out = [(u64_from_tensor(rows), [u64_from_tensor(p) for p in paths])
+           for rows, paths in _query_rows_paths(idx, batches, n_big_log, mesh)]
     return _per_query(out, len(query_indices))
 
 
@@ -747,13 +850,15 @@ def _pull_once(tree):
 
 
 def _prove_device_fs(stark: Stark, trace_cols: torch.Tensor, ctl_values, config: StarkConfig,
-                     tt) -> Proof:
+                     tt, n_log: int, mesh: Mesh = None, col_mesh: Mesh = None) -> Proof:
     """`prove` with the transcript on the device (`DeviceChallenger`): caps,
     challenges and openings stay there, the stages follow one another on the
     device's queue, and the proof reaches the host in one pull at the end;
     the grind pulls one `found` flag per batch.  The same stage code as the
-    host flow, with 0-d tensors for the challenges, so the same proof."""
-    n_log = trace_cols.shape[1].bit_length() - 1
+    host flow, with 0-d tensors for the challenges, so the same proof.  On a
+    mesh every rank runs its own challenger on the gathered caps, openings
+    and FRI column, so all of them draw the same challenges; the
+    exchanges, which gloo stages through the host, synchronise."""
     rate = config.rate_bits
     nc = config.num_challenges
     dev = trace_cols.device
@@ -767,37 +872,40 @@ def _prove_device_fs(stark: Stark, trace_cols: torch.Tensor, ctl_values, config:
 
     # ---- S1: trace commit + fs1 -----------------------------------------
     with tt.scope("trace commit"):
-        t_coeffs, t_lde, t_levels = commit_values(trace_cols, config, tt)
+        trace_cols, t_coeffs, t_lde, t_levels = commit_trace(trace_cols, config, tt, mesh,
+                                                             col_mesh)
     with tt.scope("fs1"):
-        betas, gammas, weights, totals = _fs1(ch, stark, n_log, nc, t_levels[-1], ctl_rows)
+        betas, gammas, weights, totals = _fs1(ch, stark, n_log, nc, _cap(t_levels), ctl_rows)
     ctl_weight_specs = [list(zip(ctl_cols, weights[i])) for i in range(nc)]
 
     # ---- S2: aux + commit + fs2 -------------------------------------------
     with tt.scope("aux"):
-        aux_cols = _make_aux(stark)(trace_cols, list(betas), list(gammas), ctl_weight_specs)
-        a_coeffs, a_lde, a_levels = commit_values(aux_cols, config)
+        aux_cols = _make_aux(stark, mesh)(trace_cols, list(betas), list(gammas),
+                                          ctl_weight_specs)
+        a_coeffs, a_lde, a_levels = commit_values(aux_cols, config, mesh=mesh)
     del aux_cols, trace_cols  # queries read the LDEs, not the values
     with tt.scope("fs2"):
-        alphas, alpha_pows = _fs2(ch, nc, a_levels[-1])
+        alphas, alpha_pows = _fs2(ch, nc, _cap(a_levels))
 
     # ---- S3: quotient + commit + fs3 --------------------------------------
     with tt.scope("quotient"):
-        q_chunks = _make_quotient(stark, n_log, config)(
+        q_chunks = _make_quotient(stark, n_log, config, mesh)(
             t_lde, a_lde, list(alphas), alpha_pows, list(zip(betas, gammas)), totals,
             [[wt for _, wt in per_ch] for per_ch in ctl_weight_specs],
         )
-        q_lde, q_levels = commit_coeffs(q_chunks, config)
+        q_lde, q_levels = commit_coeffs(q_chunks, config, mesh)
     with tt.scope("fs3"):
-        zeta = _fs3(ch, q_levels[-1])
+        zeta = _fs3(ch, _cap(q_levels))
     g = gl.primitive_root_of_unity(n_log)
-    zeta_g = Ext(gl.mul_const(zeta.c0, g), gl.mul_const(zeta.c1, g))
+    zeta_g = _times_const(zeta, g)
 
     # ---- S4: openings + fs4 -----------------------------------------------
     with tt.scope("openings"):
+        offsets = _block_offsets(zeta, g, t_coeffs.shape[-1], mesh)
         opens = [
-            _openings(coeffs, z)
+            _openings(coeffs, z, mesh, off)
             for coeffs in (t_coeffs, a_coeffs, q_chunks)
-            for z in (zeta, zeta_g)
+            for z, off in zip((zeta, zeta_g), offsets)
         ]
     del t_coeffs, a_coeffs  # openings done; only LDEs are queried below
     with tt.scope("fs4"):
@@ -805,22 +913,20 @@ def _prove_device_fs(stark: Stark, trace_cols: torch.Tensor, ctl_values, config:
 
     # ---- S5: FRI ------------------------------------------------------------
     with tt.scope("fri oracle"):
-        F = _fri_oracle([t_lde, a_lde, q_lde], apow, s_zeta, s_zeta_g, zeta, zeta_g, alpha_off)
+        F = _fri_oracle([t_lde, a_lde, q_lde], apow, s_zeta, s_zeta_g, zeta, zeta_g, alpha_off,
+                        mesh)
     with tt.scope("fri"):
         res = fri_mod.prove_fri_device(F, n_log, config, ch, timing=tt)
 
     with tt.scope("query extraction"):
         q_idx = res["q_idx"]
-        nat = bit_rev_perm_dev(n_log + rate, dev)[q_idx]
-        init = [
-            (lde[:, nat].T, gather_paths_dev(levels, q_idx))
-            for lde, levels in ((t_lde, t_levels), (a_lde, a_levels), (q_lde, q_levels))
-        ]
+        init = _query_rows_paths(
+            q_idx, ((t_lde, t_levels), (a_lde, a_levels), (q_lde, q_levels)), n_log + rate, mesh)
 
     # ---- the one pull -------------------------------------------------------
     with tt.scope("final pull"):
         host = _pull_once({
-            "caps": [t_levels[-1], a_levels[-1], q_levels[-1]], "opens": opens,
+            "caps": [_cap(t_levels), _cap(a_levels), _cap(q_levels)], "opens": opens,
             "fri_caps": res["caps"], "final": res["final"], "nonce": res["nonce"],
             "pow_ok": res["pow_ok"], "q_idx": q_idx, "init": init, "layers": res["layers"],
         })

@@ -330,6 +330,42 @@ def test_compose_three_kinds_on_card(card):
             outer.verify_outer(data, p_bad, pub_bad, TEST_CONFIG)
 
 
+def test_g1_msm_real_backend_on_card(card):
+    """The twin of tests/test_msm_hash_real.py::test_g1_msm_real_backend
+    through the port on the card: an 8-term g1_msm through the hook with
+    the real backend (the 8 chained g1_scalar_mul ops in ONE batch STARK
+    proof at the hook's recursion config, self-verified and injected); the
+    result equals the native oracle's sum and the circuit checks."""
+    from plonky2_bn254_tpu_torch import circuit as ckt
+    from plonky2_bn254_tpu_torch.bn254 import oracle
+    from plonky2_bn254_tpu_torch.circuit import msm
+    from plonky2_bn254_tpu_torch.circuit.curves import G1Target
+    from plonky2_bn254_tpu_torch.prover.config import StarkConfig
+
+    rng = np.random.default_rng(501)
+    b = ckt.CircuitBuilder()
+    hook = ckt.get_bn254_hook(b)
+    hook.stark_config = StarkConfig(num_challenges=2, rate_bits=1, cap_height=1,
+                                    proof_of_work_bits=8, num_query_rounds=4, arity_bits=2,
+                                    final_poly_degree_bits=3)
+    assert hook.prove_starks
+    pw = ckt.Witness()
+    scalars = [int(rng.integers(1, 1 << 62)) for _ in range(8)]
+    pts = [oracle.random_g1(rng) for _ in range(8)]
+    pts_t = [G1Target.new_unchecked(b) for _ in range(8)]
+    out = msm.g1_msm(b, scalars, pts_t)
+    for t, v in zip(pts_t, pts):
+        t.set_witness(pw, v)
+    values, proofs = b.build().prove(pw, card)
+    want = None
+    for sv, p in zip(scalars, pts):
+        term = oracle.g1_mul(p, sv)
+        want = term if want is None else oracle.g1_add(want, term)
+    assert out.get_witness(values) == want
+    assert "g1_scalar_mul" in proofs["bn254"]
+    assert len(hook.inputs_g1) == 8
+
+
 def test_mesh_transforms_on_two_gloo_ranks_on_one_card(card):
     """Two gloo ranks share the card (their blocks on cuda:0, exchanged
     through the host): mesh_ntt, mesh_intt and mesh_coset_lde_rate1 at
@@ -355,6 +391,32 @@ def test_mesh_transforms_on_two_gloo_ranks_on_one_card(card):
     for r in ranks:
         assert (r["device"], r["wire"]) == ("cuda:0", "cpu")
         assert r["K3"] == 6  # mesh_ntt, mesh_intt, the LDE's two NTTs, distributed_ntt's two
+
+
+def test_mesh_device_fs_and_2d_proofs_on_four_gloo_ranks_on_one_card(card):
+    """Four gloo ranks share the card: the demo's device-FS proof on the
+    1-D mesh and its proof with the rows over ("tp", "dp") of the (2, 2)
+    mesh each equal the single-device proof on the card on every rank;
+    K1, K2 and K3 launch on every rank, K4 never, K2t only with the device
+    transcript."""
+    from plonky2_bn254_tpu_torch.parallel import launch
+    from plonky2_bn254_tpu_torch.prover import prove as prove_mod
+    from plonky2_bn254_tpu_torch.prover.config import TEST_CONFIG
+    from plonky2_bn254_tpu_torch.starks.demo import demo_stark
+    from torch_parallel_case import card_mesh_prove_case, demo_inputs
+
+    inputs = demo_inputs(61)
+    kernels.library()  # built once here, loaded by the ranks
+    ranks = launch.run(card_mesh_prove_case, 4, inputs, timeout=600)
+    single = proof_to_fields(prove_mod.prove(
+        demo_stark(), inputs["demo_trace"].to(card), inputs["demo_ctl"], TEST_CONFIG))
+    as_json = lambda f: json.dumps(f, default=lambda v: v.tolist())
+    for r in ranks:
+        for name, res in r.items():
+            assert as_json(res["proof"]) == as_json(single), name
+            n = res["launches"]
+            assert min(n["K1"], n["K2"], n["K3"]) > 0 and n["K4"] == 0, (name, n)
+            assert (n["K2t"] > 0) == (name == "device_fs_1d"), (name, n)
 
 
 def test_nccl_ranks_sharing_one_card_raise(card):

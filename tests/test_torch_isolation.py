@@ -34,9 +34,13 @@ def test_port_imports_no_jax():
               "parallel.ntt", "parallel.launch"):
         assert f"plonky2_bn254_tpu_torch.{m}" in mods, m
     assert "plonky2_bn254_tpu_torch.circuit" in mods
+    # the mesh scripts (scripts/ on the path, as when they run) and the smoke
+    scripts = ["torch_mesh_common", "torch_mesh_scaling", "torch_mesh2d_production",
+               "torch_dryrun_multichip", "chip_smoke"]
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r}:\n"
+        "sys.path.insert(0, 'scripts')\n"
+        f"for m in {mods + scripts!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib', 'plonky2_bn254_tpu.')) or k == 'plonky2_bn254_tpu')\n"
         "assert not bad, bad\n"

@@ -14,7 +14,7 @@ from plonky2_bn254_tpu_torch.parallel import ntt as pntt
 from plonky2_bn254_tpu_torch.prover import prove as prove_mod
 from plonky2_bn254_tpu_torch.prover.merkle import sharded_tree
 from plonky2_bn254_tpu_torch.prover.config import TEST_CONFIG, StarkConfig
-from plonky2_bn254_tpu_torch.starks.demo import demo_stark
+from plonky2_bn254_tpu_torch.starks.demo import demo_stark, keyed_demo_stark
 
 
 def _raises(fn) -> str:
@@ -63,8 +63,6 @@ def rank_case(rank: int, world: int, inputs: dict) -> dict:
     trace = inputs["demo_trace"]
     out["raise_rate"] = _raises(lambda: prove_mod.prove(
         demo_stark(), trace, inputs["demo_ctl"], StarkConfig(rate_bits=2, cap_height=1), mesh=m))
-    out["raise_device_fs"] = _raises(lambda: prove_mod.prove(
-        demo_stark(), trace, inputs["demo_ctl"], TEST_CONFIG, device_fs=True, mesh=m))
 
     # the demo proof, recording the shape of every commit's LDE
     lde_shapes = []
@@ -89,6 +87,71 @@ def rank_case(rank: int, world: int, inputs: dict) -> dict:
     out["proof"] = proof_to_fields(proof)
     out["lde_shapes"] = lde_shapes
     out["stats"] = dict(m.stats)
+    out["device_fs_proof"] = proof_to_fields(prove_mod.prove(
+        demo_stark(), trace, inputs["demo_ctl"], TEST_CONFIG, device_fs=True, mesh=m))
+    if world == 4:
+        out["mesh2d"] = mesh2d_case(rank, inputs)
+    return out
+
+
+def _record_trace_blocks(blocks: list):
+    """Wrap `prove_mod.commit_trace` to record the shape of the trace block
+    it is given; returns the function that undoes the wrap."""
+    commit_trace = prove_mod.commit_trace
+
+    def rec(values, *a, **k):
+        blocks.append(tuple(values.shape))
+        return commit_trace(values, *a, **k)
+
+    prove_mod.commit_trace = rec
+    return lambda: setattr(prove_mod, "commit_trace", commit_trace)
+
+
+# (machine, prove keywords) of each 2-D case on the (2, 2) mesh over ("tp", "dp")
+MESH2D_CASES = {
+    "rows_tp_dp": ("demo", {"mesh_axis": ("tp", "dp")}),
+    # the flattened axes in the other order than the mesh's
+    "rows_dp_tp": ("demo", {"mesh_axis": ("dp", "tp")}),
+    "rows_tp_dp_device_fs": ("demo", {"mesh_axis": ("tp", "dp"), "device_fs": True}),
+    # width 5 does not divide over tp: the columns replicate
+    "cols_replicated": ("demo", {"mesh_axis": "dp", "col_axis": "tp"}),
+    # width 6 does: each rank commits [3, n/2] of the trace
+    "keyed_cols_sharded": ("keyed", {"mesh_axis": "dp", "col_axis": "tp"}),
+    "keyed_cols_sharded_device_fs": ("keyed", {"mesh_axis": "dp", "col_axis": "tp",
+                                               "device_fs": True}),
+}
+
+
+def mesh2d_case(rank: int, inputs: dict) -> dict:
+    """On 4 ranks: the (2, 2) mesh's layout and its reversed-order
+    collectives, then every MESH2D_CASES proof with the trace block each
+    rank committed and the bytes it sent over each axis."""
+    raise_shape = _raises(lambda: mesh_mod.make_mesh2d((3, 2), device="cpu"))
+    m2 = mesh_mod.make_mesh2d((2, 2), device="cpu")
+    flat = {axes: m2.sub(axes) for axes in (("tp", "dp"), ("dp", "tp"))}
+    rev = flat[("dp", "tp")]
+    pieces = [torch.tensor([10 * rev.rank + t]) for t in range(4)]
+    out = {"coords": m2.coords, "raise_shape": raise_shape,
+           "subs": {",".join(k): (m.rank, m.size) for k, m in m2.meshes.items()},
+           "rev_exchange": [int(x) for x in mesh_mod.exchange(rev, pieces, [(1,)] * 4)],
+           "rev_gather": u64_from_tensor(mesh_mod.all_gather(rev, torch.tensor([rev.rank]))),
+           "raise_col_in_rows": _raises(lambda: prove_mod.prove(
+               demo_stark(), inputs["demo_trace"], inputs["demo_ctl"], TEST_CONFIG, mesh=m2,
+               mesh_axis=("tp", "dp"), col_axis="tp")),
+           "proofs": {}}
+    machines = {"demo": (demo_stark(), inputs["demo_trace"], inputs["demo_ctl"]),
+                "keyed": (keyed_demo_stark(), inputs["keyed_trace"], inputs["keyed_ctl"])}
+    for name, (machine, kw) in MESH2D_CASES.items():
+        stark, trace, ctl = machines[machine]
+        blocks = []
+        undo = _record_trace_blocks(blocks)
+        m2.reset_stats()
+        try:
+            proof = prove_mod.prove(stark, trace, ctl, TEST_CONFIG, mesh=m2, **kw)
+        finally:
+            undo()
+        out["proofs"][name] = {"proof": proof_to_fields(proof), "trace_blocks": blocks,
+                               "stats": m2.stats}
     return out
 
 
@@ -108,6 +171,21 @@ def card_rank_case(rank: int, world: int, x: np.ndarray) -> dict:
             **{k: u64_from_tensor(v) for k, v in out.items()}}
 
 
+def card_mesh_prove_case(rank: int, world: int, inputs: dict) -> dict:
+    """On the card (4 ranks): the demo proved with the device transcript on
+    the 1-D mesh and with the rows over ("tp", "dp") of the (2, 2) mesh,
+    each with this rank's launches."""
+    m1, m2 = mesh_mod.make_mesh(world), mesh_mod.make_mesh2d((2, 2))
+    args = (demo_stark(), inputs["demo_trace"], inputs["demo_ctl"], TEST_CONFIG)
+    out = {}
+    for name, kw in (("device_fs_1d", {"mesh": m1, "device_fs": True}),
+                     ("rows_tp_dp", {"mesh": m2, "mesh_axis": ("tp", "dp")})):
+        kernels.reset_launches()
+        out[name] = {"proof": proof_to_fields(prove_mod.prove(*args, **kw)),
+                     "launches": dict(kernels.LAUNCHES)}
+    return out
+
+
 def nccl_rank_case(rank: int, world: int) -> None:
     """make_mesh on an NCCL group: raises where the ranks share a card."""
     mesh_mod.make_mesh(world)
@@ -123,10 +201,11 @@ def demo_inputs(seed: int) -> dict:
     """The inputs every rank gets: random residues for the transforms and
     the demo machine's trace (a CPU tensor, shared with the ranks)."""
     from plonky2_bn254_tpu_torch.field import goldilocks as gl
-    from plonky2_bn254_tpu_torch.starks.demo import demo_trace
+    from plonky2_bn254_tpu_torch.starks.demo import demo_trace, keyed_demo_trace
 
     rng = np.random.default_rng(seed)
     trace, ctl = demo_trace(np.random.default_rng(91))
+    keyed, keyed_ctl = keyed_demo_trace(np.random.default_rng(21))
     return {
         "dist_x": rng.integers(0, gl.P, size=(64, 128), dtype=np.uint64),
         "mesh_x": rng.integers(0, gl.P, size=(4, 1024), dtype=np.uint64),
@@ -134,4 +213,19 @@ def demo_inputs(seed: int) -> dict:
         "tree_leaves": rng.integers(0, gl.P, size=(64, 7), dtype=np.uint64),
         "demo_trace": trace.share_memory_(),
         "demo_ctl": ctl,
+        "keyed_trace": keyed.share_memory_(),
+        "keyed_ctl": keyed_ctl,
     }
+
+
+def mesh2d_8_case(rank: int, world: int, inputs: dict) -> dict:
+    """On 8 ranks: the demo proved with rows over ("tp", "dp") of
+    make_mesh2d((2, 4)), and over ("dp", "tp") of a (2, 4) mesh whose axes
+    are ("dp", "tp")."""
+    torch.set_num_threads(1)
+    args = (demo_stark(), inputs["demo_trace"], inputs["demo_ctl"], TEST_CONFIG)
+    out = {}
+    for axes in (("tp", "dp"), ("dp", "tp")):
+        m2 = mesh_mod.make_mesh2d((2, 4), axes=axes, device="cpu")
+        out[axes] = proof_to_fields(prove_mod.prove(*args, mesh=m2, mesh_axis=axes))
+    return out
