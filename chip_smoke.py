@@ -157,12 +157,21 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
+def card_line(fields: str = "name,power.limit") -> str:
+    """The first card's `fields` as nvidia-smi gives them (csv, no header)."""
     res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return res.stdout.strip().splitlines()[0]
+
+
+def require_card(what: str) -> torch.device:
+    """cuda:0, or exit non-zero: the port's chip entry points never run on
+    the CPU."""
+    if not torch.cuda.is_available():
+        raise SystemExit(f"{what}: no CUDA device (torch.cuda.is_available() is false)")
+    return torch.device("cuda", 0)
 
 
 def rand_residues(rng, shape, device):
@@ -477,9 +486,10 @@ def demo_matches_cpu(device) -> None:
 
 class Path:
     """One of the three machines, driven through its public entry points:
-    generate_trace, prove, verify."""
+    generate_trace, prove, verify; `n_ops` ops drawn from `seed` as
+    bench.py draws them (bench.py:111-122)."""
 
-    def __init__(self, name: str, device):
+    def __init__(self, name: str, device, n_ops: int = N_OPS, seed: int = SEED):
         from plonky2_bn254_tpu_torch.bn254 import oracle
         from plonky2_bn254_tpu_torch.starks import fq_exp, g1_scalar_mul, g2_scalar_mul, table
 
@@ -489,21 +499,21 @@ class Path:
             "fq_exp": (fq_exp, table.fq_exp_stark()),
             "g2": (g2_scalar_mul, table.g2_scalar_mul_stark()),
         }[name]
-        rng = np.random.default_rng(SEED)
+        rng = np.random.default_rng(seed)
 
         def scalar():
             return int(rng.integers(1, 1 << 63)) << 192 | int(rng.integers(0, 1 << 63))
 
         if name == "fq_exp":
-            self.inputs = [(scalar(), oracle.random_fq(rng), t) for t in range(N_OPS)]
+            self.inputs = [(scalar(), oracle.random_fq(rng), t) for t in range(n_ops)]
         else:
             point = oracle.random_g1 if name == "g1" else oracle.random_g2
-            self.inputs = [(scalar(), point(rng), point(rng), t) for t in range(N_OPS)]
+            self.inputs = [(scalar(), point(rng), point(rng), t) for t in range(n_ops)]
         self.ctl_values = self.module.generate_ctl_values(self.inputs)
 
     def trace(self):
         trace = self.module.generate_trace(self.inputs, device=self.device)
-        assert trace.shape == (1 << 16, self.stark.width), trace.shape
+        assert trace.shape[0] >= 1 << 16 and trace.shape[1] == self.stark.width, trace.shape
         return trace
 
     def prove_trace(self, trace, tt=None, device_fs=None):
@@ -1108,9 +1118,7 @@ def synced_proof(path) -> dict:
 
 
 def main() -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
-    device = torch.device("cuda", 0)
+    device = require_card("chip_smoke")
     t_start = time.perf_counter()
 
     from plonky2_bn254_tpu_torch import kernels

@@ -433,3 +433,45 @@ def test_nccl_ranks_sharing_one_card_raise(card):
         pytest.skip("two cards: the ranks would not share one")
     with pytest.raises(RuntimeError, match="share a card"):
         launch.run(nccl_rank_case, 2, backend="nccl", timeout=300)
+
+
+def _measurement_scripts_on_path():
+    import pathlib
+    import sys
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    for p in (repo, repo / "scripts"):
+        if str(p) not in sys.path:
+            sys.path.insert(0, str(p))
+
+
+def test_bench_measure_fq_exp_on_card(card):
+    """bench_torch.py's measuring function on the 128-op FqExp batch at
+    DEFAULT_CONFIG, one repeat: the gate passes, every key is there, and
+    the result names the card."""
+    _measurement_scripts_on_path()
+    import bench_torch
+    from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG
+
+    res = bench_torch.measure("fq_exp", 128, DEFAULT_CONFIG, 1, card)
+    assert res["verified"] is True and res["n"] == 1
+    assert res["value"] == 128 / res["median_s"] and res["median_s"] == res["walls_s"][0]
+    assert res["peak_gb"] > 0 and res["build_s"] >= 0 and res["warmup_s"] > 0
+    assert {"trace gen", "trace commit", "fs1", "aux", "quotient", "fri"} <= set(res["stages_s"])
+    dev = res["device"]
+    assert dev["platform"] == "gpu" and dev["count"] == torch.cuda.device_count()
+    assert dev["before"]["sm_clock"] and dev["after"]["power_draw"]
+
+
+def test_bench_outer_gate_path_on_card(card):
+    """scripts/torch_bench_outer.py's run with one repeat: outputs equal
+    pow(x, s, P), verify_all accepts, a corrupted public value is rejected."""
+    _measurement_scripts_on_path()
+    import torch_bench_outer
+
+    marks = []
+    res = torch_bench_outer.run(card, 1, marks.append)
+    assert res["verified"] is True and res["stages"]["corrupted_public_rejected"] is True
+    assert res["metric"] == "composed_outer_prove_steady_s" and res["value"] == res["median_s"]
+    assert res["stages"]["outer_rows_log2"] == 20 and res["n"] == 1
+    assert marks[-1] == "corrupted public input rejected"

@@ -34,9 +34,12 @@ def test_port_imports_no_jax():
               "parallel.ntt", "parallel.launch"):
         assert f"plonky2_bn254_tpu_torch.{m}" in mods, m
     assert "plonky2_bn254_tpu_torch.circuit" in mods
-    # the mesh scripts (scripts/ on the path, as when they run) and the smoke
+    # the mesh and measurement scripts (scripts/ on the path, as when they
+    # run), the smoke and the bench
     scripts = ["torch_mesh_common", "torch_mesh_scaling", "torch_mesh2d_production",
-               "torch_dryrun_multichip", "chip_smoke"]
+               "torch_dryrun_multichip", "chip_smoke", "bench_torch", "torch_bench_outer",
+               "torch_prove_compose_default", "torch_profile_chip", "torch_measure_hook_scale",
+               "torch_measure_default_recursion"]
     code = (
         "import importlib, sys\n"
         "sys.path.insert(0, 'scripts')\n"
