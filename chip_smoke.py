@@ -78,10 +78,14 @@ Phases (any failure exits non-zero before the result line):
      the native hash_to_g2 mirror, verify_all accepts, a flipped opening is
      rejected, and every kernel launched during the phase;
   8. each kernel against its plain PyTorch version on the card, at every
-     shape any path launched it with and at a few odd sizes, with
-     torch.equal (exact integer arithmetic: the tolerance is zero); the
-     kernel timed at each path shape beside its bound (bounds.py), the
-     plain version at the largest and the smallest; K2t at every
+     shape any path launched it with and at a few odd sizes (K1 and K2
+     also one row either side of the regime threshold; K1m, the Merkle
+     levels, as hash_tree_levels returns them, from 2^17 digests to cap 4,
+     2^13 to cap 0 and from 2), with torch.equal (exact integer arithmetic:
+     the tolerance is zero); the kernel timed at each path shape beside its
+     bound (bounds.py; K1 and K2 also by their latency floor, K1m by the
+     sum of its levels'), the plain version at the largest and the
+     smallest; K2t at every
      transition key (pending words, absorbed words, pending outputs,
      squeezes) against its plain version run in lockstep over all keys on
      the CPU copy of the same inputs (its permutations run one after
@@ -141,6 +145,9 @@ MESH_TIMEOUT_S = 500
 KERNELS = {
     "K1": ("hash_leaves", "plonky2_bn254_tpu_torch/csrc/poseidon.cu",
            "plonky2_bn254_tpu/field/poseidon_pallas.py:385"),
+    # K1's Merkle use: every tree level below the regime threshold in one launch
+    "K1m": ("hash_tree_levels", "plonky2_bn254_tpu_torch/csrc/poseidon.cu",
+            "plonky2_bn254_tpu/field/poseidon_pallas.py:385"),
     "K2": ("permute_states", "plonky2_bn254_tpu_torch/csrc/poseidon.cu",
            "plonky2_bn254_tpu/field/poseidon_pallas.py:457"),
     # K2's transcript use, redesigned: one launch per transition
@@ -283,29 +290,43 @@ def clock_max_mhz() -> float:
 
 
 def kernel_call(kid: str, key: tuple):
-    """(wrapper, plain version, (ops, bytes), input shape) of one launch key
-    as the wrappers record it in kernels.CALLS."""
+    """(wrapper, plain version, bound: (sms, clock MHz) -> (ms, "operations"
+    or "bytes"), input shape) of one launch key as the wrappers record it in
+    kernels.CALLS.  K1m's wrapper and plain version return the levels as
+    one tensor."""
     from plonky2_bn254_tpu_torch import bounds
     from plonky2_bn254_tpu_torch.field import ntt_cuda, poseidon_cuda as pc
 
+    def bound(ops, nbytes, chain=0):
+        return lambda sms, mhz: bounds.bound_ms(ops, nbytes, sms, mhz, chain)
+
     if kid == "K1":
-        return pc.hash_leaves, pc.hash_leaves_plain, bounds.hash_leaves_work(*key), key
+        return pc.hash_leaves, pc.hash_leaves_plain, bound(*bounds.hash_leaves_work(*key)), key
+    if kid == "K1m":
+        n, levels = key
+        return (lambda x: torch.cat(pc.hash_tree_levels(x, levels)),
+                lambda x: torch.cat(pc.hash_tree_levels_plain(x, levels)),
+                lambda sms, mhz: bounds.tree_levels_bound_ms(n, levels, sms, mhz), (n, 4))
     if kid == "K2":
         return (pc.permute_states, pc.permute_states_plain,
-                bounds.permute_states_work(key[0]), (key[0], 12))
+                bound(*bounds.permute_states_work(key[0])), (key[0], 12))
     rows, n, out_n, inverse = key
     if kid == "K3":
         kern, plain = (ntt_cuda.intt, ntt_cuda.intt_plain) if inverse else (ntt_cuda.ntt, ntt_cuda.ntt_plain)
-        return kern, plain, bounds.ntt_work(rows, n, inverse), (rows, n)
+        return kern, plain, bound(*bounds.ntt_work(rows, n, inverse)), (rows, n)
     rate = (out_n // n).bit_length() - 1
     return (lambda x: ntt_cuda.coset_lde(x, rate), lambda x: ntt_cuda.coset_lde_plain(x, rate),
-            bounds.coset_lde_work(rows, n, rate), (rows, n))
+            bound(*bounds.coset_lde_work(rows, n, rate)), (rows, n))
 
 
 # Sizes beside the main path's, as launch keys: edge widths, n = 1, n = 2^20,
-# the forward NTT, the LDE at rate 2.
+# the forward NTT, the LDE at rate 2; K1 and K2 also at the regime threshold
+# and one row either side of it (threshold_keys).
 ODD_KEYS = {
-    "K1": [(1, 781), (5, 13), (3, 0)],
+    "K1": [(1, 781), (3, 781), (5, 13), (5, 9), (3, 0)],
+    # (digests, levels): a 2^17-leaf tree to cap 4 (its lowest levels through
+    # K1), 2^13 leaves to cap 0, 2 leaves
+    "K1m": [(1 << 17, 13), (1 << 13, 13), (2, 1)],
     "K2": [(1,)],
     # (pending, absorbed, pending outputs, squeezes): pending 0 and 7, an
     # empty absorb, squeeze-only, more than 8 squeezes, a 9,000-word absorb
@@ -316,6 +337,17 @@ ODD_KEYS = {
     "K4": [(5, 8, 16, False), (1, 1, 2, False), (7, 1 << 12, 1 << 14, False),
            (3, 1 << 16, 1 << 18, False)],
 }
+
+
+def threshold_keys(kid: str, device) -> list:
+    """K1 at w = 8 and K2 one row below, at and one above the rows where the
+    wrapper takes the throughput kernel on this card."""
+    from plonky2_bn254_tpu_torch.field import poseidon_cuda as pc
+
+    if kid not in ("K1", "K2"):
+        return []
+    t = pc.device_threshold(kid, device)
+    return [(t + d, 8) if kid == "K1" else (t + d,) for d in (-1, 0, 1)]
 
 
 def k2t_inputs(rng, key: tuple, device) -> tuple:
@@ -422,21 +454,21 @@ def compare_kernels(device, calls_by_path: dict, sms: int, clock_mhz: float) -> 
 
 
 def compare_k1_to_k4(device, calls_by_path: dict, sms: int, clock_mhz: float) -> dict:
-    """K1-K4 against their plain versions on the card (see compare_kernels)."""
-    from plonky2_bn254_tpu_torch import bounds
-
+    """K1-K4 and K1m against their plain versions on the card (see
+    compare_kernels)."""
     rng = np.random.default_rng(SEED)
     results = {}
     for kid, odd in ODD_KEYS.items():
         if kid == "K2t":
             continue
+        odd = odd + threshold_keys(kid, device)
         calls = Counter()
         for per_path in calls_by_path.values():
             calls.update(per_path[kid])
-        timed = sorted(calls, key=lambda k: kernel_call(kid, k)[2], reverse=True)
+        timed = sorted(calls, key=lambda k: kernel_call(kid, k)[2](sms, clock_mhz)[0], reverse=True)
         err, rows = 0, []
         for i, key in enumerate(timed + [k for k in odd if k not in calls]):
-            kern, plain, work, shape = kernel_call(kid, key)
+            kern, plain, bound_of, shape = kernel_call(kid, key)
             x = rand_residues(rng, shape, device)
             got = kern(x)
             want = plain(x)  # also the warm-up of the plain timing below
@@ -450,7 +482,7 @@ def compare_k1_to_k4(device, calls_by_path: dict, sms: int, clock_mhz: float) ->
                 ms = cuda_ms(lambda: kern(x), reps=20)
                 plain_ms = (cuda_ms(lambda: plain(x), reps=1, warm_up=False)
                             if i in (0, len(timed) - 1) else None)
-                bound, bound_by = bounds.bound_ms(*work, sms, clock_mhz)
+                bound, bound_by = bound_of(sms, clock_mhz)
                 per_path = {p: calls_by_path[p][kid].get(key, 0) for p in calls_by_path}
                 rows.append({"key": list(key), "launches": per_path, "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,

@@ -25,7 +25,10 @@ chain of m dependent permutations, so the throughput bound says little: its
 bound is also at least the critical path of that chain in its cheapest form
 (`transition_latency`), each dependent operation at the latency in cycles
 that `op_latencies` measures (clock64() chains of `csrc/op_probe.cu`),
-pinned in `OP_LATENCY`, at the card's maximum SM clock.
+pinned in `OP_LATENCY`, at the card's maximum SM clock.  K1 and K2 carry the
+same floor, a row's permutations in sequence (`permutation_latency` each),
+which is what bounds them at few rows; K1m (the Merkle levels) is bound by
+the sum of its levels' bounds, since each level waits for the one below.
 """
 
 from __future__ import annotations
@@ -155,14 +158,32 @@ def sponge_transition_work(key: tuple) -> tuple:
 
 
 def hash_leaves_work(n: int, w: int) -> tuple:
-    """(ops, bytes) of K1 on [n, w] leaves: ceil(w / 8) permutations a row."""
-    perms = n * max(1, -(-w // POSEIDON_RATE))
-    return perms * permutation_ops(), 8 * n * w + 32 * n
+    """(ops, bytes, critical path in cycles) of K1 on [n, w] leaves:
+    ceil(w / 8) permutations a row, one after another."""
+    chunks = -(-w // POSEIDON_RATE) if n else 0
+    return (n * chunks * permutation_ops(), 8 * n * w + 32 * n,
+            chunks * permutation_latency())
 
 
 def permute_states_work(n: int) -> tuple:
-    """(ops, bytes) of K2 on [n, 12] states."""
-    return n * permutation_ops(), 2 * 8 * POSEIDON_WIDTH * n
+    """(ops, bytes, critical path in cycles) of K2 on [n, 12] states."""
+    return (n * permutation_ops(), 2 * 8 * POSEIDON_WIDTH * n,
+            permutation_latency() if n else 0)
+
+
+def tree_levels_bound_ms(n: int, n_levels: int, sms: int, clock_mhz: float) -> tuple:
+    """(bound in ms, "operations" or "bytes") of K1m on the `n_levels`
+    Merkle levels above n digests (level i: K1 on [n / 2^(i+1), 8] pair
+    rows): the sum of each level's bound (the larger of its throughput and
+    its latency), since a level starts only when the one below is done;
+    labelled by the side that the larger part of that sum comes from."""
+    parts = []
+    for i in range(n_levels):
+        ops, nbytes, chain = hash_leaves_work(n >> (i + 1), 2 * 4)
+        parts.append(bound_ms(ops, nbytes, sms, clock_mhz, chain))
+    total = sum(ms for ms, _ in parts)
+    by_ops = sum(ms for ms, by in parts if by == "operations")
+    return total, "operations" if 2 * by_ops >= total else "bytes"
 
 
 def _dft_ops(n_log: int, products: int) -> int:
@@ -200,8 +221,8 @@ def coset_lde_work(w: int, n: int, rate_bits: int) -> tuple:
 
 def bound_ms(ops: int, nbytes: int, sms: int, clock_mhz: float, chain_cycles: int = 0) -> tuple:
     """(bound in ms, "operations" or "bytes").  `chain_cycles`: the critical
-    path of operations that depend on one another (K2t), which bounds them
-    from below at the clock as the issue rate does."""
+    path of operations that depend on one another (K1, K2, K2t), which
+    bounds them from below at the clock as the issue rate does."""
     t_ops = max(ops / (INT32_OPS_PER_CLK_PER_SM * sms * clock_mhz * 1e6),
                 chain_cycles / (clock_mhz * 1e6))
     t_bytes = nbytes / HBM_BYTES_PER_S

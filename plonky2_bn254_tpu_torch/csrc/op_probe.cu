@@ -106,8 +106,9 @@ extern "C" int p2_op_latencies(void* scratch, long long* cycles_host) {
 }
 
 // K2t's one-thread rung: the transition of poseidon.cu's
-// sponge_transition_kernel on one thread, over `permute` (the 12 words in
-// that thread's registers), the first design K2t was measured against
+// sponge_transition_kernel on one thread, over `permute` (the throughput
+// kernels' permutation: the 12 words in that thread's registers, the
+// partial rounds sparse), the design K2t was first measured against
 // (scripts/torch_k2t_rung.py).  Its constants: this library's own
 // p2_poseidon_init.
 namespace {

@@ -3,29 +3,60 @@
 //
 // K1 p2_hash_leaves replaces plonky2_bn254_tpu/field/poseidon_pallas.py
 //    _leaf_hash_fn (body _make_leaf_kernel): the overwrite-mode sponge of
-//    every row of an [N, W] leaf matrix -> [N, 4] digests.  Merkle levels
-//    reuse it on [m, 8] pair rows (two_to_one(l, r) == hash_no_pad(l || r)).
+//    every row of an [N, W] leaf matrix -> [N, 4] digests.
+// K1m p2_tree_levels is K1's Merkle use (the reference runs its Merkle
+//    levels through the same Pallas kernel on [m, 8] pair rows, since
+//    two_to_one(l, r) == hash_no_pad(l || r)): every level of a tree below
+//    the regime threshold in one launch.
 // K2 p2_permute_states replaces poseidon_pallas.py _permute_states_fn: the
 //    raw permutation of [N, 12] states, for the FRI proof-of-work grind.
 // K2t p2_sponge_transition: one whole Fiat-Shamir transcript transition on
 //    one sponge state (absorb, then squeeze); see the note at its kernel.
 //
-// Bound on the H100: integer multiply throughput.  One permutation is ~470
-// Goldilocks products (each a 64x64->128 multiply and a reduction) plus 30
-// MDS layers of 144 small-constant products; a row of the 781-wide trace
-// runs 98 permutations over 6.2 KB of input, so the work is ~40 integer ops
-// per input byte, far above the card's ops-per-byte balance.
+// K1 and K2 run in one of two regimes, which the wrapper picks from the
+// row count, the SM count and the throughput kernels' occupancy
+// (field/poseidon_cuda.py regime):
 //
-// Design: one thread per row.  The 12-word state lives in registers
-// (fully unrolled element loops); round constants and the MDS matrix sit in
-// __constant__ memory, read uniformly by the warp.  The TPU kernel's
-// (8, 128) tiling and its padding of N to 1024 do not carry over: any N >= 1
-// and any W (including W = 0) are taken.  Rows are read with a stride of W
-// words, uncoalesced across the warp; each thread reads a contiguous 64-byte
-// chunk per absorb, so whole sectors are still used.
+// Throughput (rows that fill the card): bound by the integer issue rate.
+//   One permutation is ~470 Goldilocks products plus the MDS layers; a row
+//   of the 781-wide trace runs 98 permutations over 6.2 KB, ~40 integer
+//   ops per input byte, far above the card's ops-per-byte balance.  Design:
+//   one thread per row, the 12-word state in registers, the partial rounds
+//   in the sparse form (field/poseidon_sparse.py: 23 full products a round
+//   instead of the dense MDS's 144 small ones; the products of a row summed
+//   exactly in 160 bits and reduced once), each full round's next constant
+//   folded into its MDS sum.  Tables sit in __constant__ memory, read
+//   uniformly by the warp.  __launch_bounds__(128, 2) leaves ptxas ~200
+//   registers for the fully unrolled rounds: capping it at 128 (4 blocks
+//   an SM) ran slower, more warps hiding less than the lost scheduling
+//   freedom cost (scripts/torch_poseidon_regimes.py).  Any N >= 1 and any
+//   W (W = 0 too) are taken.
+//
+// Latency (fewer rows): bound by one permutation's critical path per
+//   absorbed chunk; with one thread a row a launch costs the ~70 us one
+//   thread takes for a permutation, whatever its size.  Design: K2t's warp
+//   core on groups of 16 lanes, two states a warp: lane e < 12 holds word
+//   e, so a round's S-boxes run side by side and the MDS sums are trees
+//   over shuffled words; the partial rounds stay dense, as in K2t, since
+//   the sparse form's full products would lengthen the path.  Round
+//   constants sit in shared memory, each folded into the previous round's
+//   MDS sum.
+//
+// K1m: each block of 256 threads hashes 16 pair rows of the first level
+//   and walks its subtree down through shared memory to one root; the last
+//   of each 32 sibling blocks to finish (a counter and __threadfence)
+//   carries on from their roots, and so on up.  So a tree costs one launch,
+//   each level one pass of a block (about one permutation latency) once
+//   its rows no longer fill the card.
 #include <cuda_runtime.h>
 
 #include "goldilocks.cuh"
+
+// The throughput kernels' minimum resident blocks an SM (__launch_bounds__;
+// scripts/torch_poseidon_regimes.py builds other values to compare).
+#ifndef P2_TP_MIN_BLOCKS
+#define P2_TP_MIN_BLOCKS 2
+#endif
 
 namespace {
 
@@ -34,9 +65,23 @@ constexpr int RATE = 8;
 constexpr int HALF_FULL = 4;
 constexpr int PARTIAL = 22;
 constexpr int N_ROUNDS = 2 * HALF_FULL + PARTIAL;
+constexpr int N_FULL = 2 * HALF_FULL;
 
 __constant__ uint64_t c_rc[N_ROUNDS * WIDTH];
 __constant__ uint32_t c_mds[WIDTH * WIDTH];
+// the sparse partial rounds (field/poseidon_sparse.py): the constant each
+// full round's MDS sum folds in (the next round's, or the first partial
+// round's whole vector), the 11 x 11 initial matrix, the scalar after each
+// partial S-box, each round's first row [m00, SPARSE_ROWS[k]] and column
+__constant__ uint64_t c_full_next[N_FULL * WIDTH];
+__constant__ uint64_t c_init[(WIDTH - 1) * (WIDTH - 1)];
+__constant__ uint64_t c_scalar[PARTIAL];
+__constant__ uint64_t c_row[PARTIAL * WIDTH];
+__constant__ uint64_t c_col[PARTIAL * (WIDTH - 1)];
+
+// ---------------------------------------------------------------------------
+// One permutation in one thread's registers (throughput regime)
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint64_t sbox(uint64_t x) {
   const uint64_t x2 = gl::mul(x, x);
@@ -45,13 +90,15 @@ __device__ __forceinline__ uint64_t sbox(uint64_t x) {
   return gl::mul(x6, x);
 }
 
-// MDS @ state: exact 128-bit row sums from 32-bit halves times the small
-// entries (each half-sum < 2^42), then one reduction per output.
-__device__ __forceinline__ void mds_layer(uint64_t s[WIDTH]) {
+// MDS @ state + full round f's folded constant: exact 128-bit row sums from
+// 32-bit halves times the small entries (each half-sum < 2^42), then one
+// reduction per output.
+__device__ __forceinline__ void mds_layer(uint64_t s[WIDTH], int f) {
   uint64_t out[WIDTH];
 #pragma unroll
   for (int i = 0; i < WIDTH; i++) {
-    uint64_t acc_lo = 0, acc_hi = 0;
+    const uint64_t k = c_full_next[f * WIDTH + i];
+    uint64_t acc_lo = k & 0xFFFFFFFFull, acc_hi = k >> 32;
 #pragma unroll
     for (int j = 0; j < WIDTH; j++) {
       const uint64_t m = c_mds[i * WIDTH + j];
@@ -66,32 +113,123 @@ __device__ __forceinline__ void mds_layer(uint64_t s[WIDTH]) {
   for (int i = 0; i < WIDTH; i++) s[i] = out[i];
 }
 
-__device__ __forceinline__ void full_round(uint64_t s[WIDTH], int r) {
+// Full round f (0..7), its round constant already added.
+__device__ __forceinline__ void full_round(uint64_t s[WIDTH], int f) {
 #pragma unroll
-  for (int e = 0; e < WIDTH; e++) s[e] = sbox(gl::add(s[e], c_rc[r * WIDTH + e]));
-  mds_layer(s);
+  for (int e = 0; e < WIDTH; e++) s[e] = sbox(s[e]);
+  mds_layer(s, f);
 }
 
-__device__ __forceinline__ void partial_round(uint64_t s[WIDTH], int r) {
+// (top, hi, lo) += a * b: the exact 128-bit product into a 160-bit sum.
+__device__ __forceinline__ void mac160(uint64_t& lo, uint64_t& hi, uint32_t& top, uint64_t a,
+                                       uint64_t b) {
+  asm("{\n\t"
+      ".reg .u32 a0, a1, b0, b1, c0, c1, c2, c3;\n\t"
+      "mov.b64 {a0, a1}, %3;\n\t"
+      "mov.b64 {b0, b1}, %4;\n\t"
+      "mov.b64 {c0, c1}, %0;\n\t"
+      "mov.b64 {c2, c3}, %1;\n\t"
+      "mad.lo.cc.u32 c0, a0, b0, c0;\n\t"
+      "madc.hi.cc.u32 c1, a0, b0, c1;\n\t"
+      "madc.lo.cc.u32 c2, a1, b1, c2;\n\t"
+      "madc.hi.cc.u32 c3, a1, b1, c3;\n\t"
+      "addc.u32 %2, %2, 0;\n\t"
+      "mad.lo.cc.u32 c1, a0, b1, c1;\n\t"
+      "madc.hi.cc.u32 c2, a0, b1, c2;\n\t"
+      "addc.cc.u32 c3, c3, 0;\n\t"
+      "addc.u32 %2, %2, 0;\n\t"
+      "mad.lo.cc.u32 c1, a1, b0, c1;\n\t"
+      "madc.hi.cc.u32 c2, a1, b0, c2;\n\t"
+      "addc.cc.u32 c3, c3, 0;\n\t"
+      "addc.u32 %2, %2, 0;\n\t"
+      "mov.b64 %0, {c0, c1};\n\t"
+      "mov.b64 %1, {c2, c3};\n\t"
+      "}"
+      : "+l"(lo), "+l"(hi), "+r"(top)
+      : "l"(a), "l"(b));
+}
+
+// top * 2^128 + hi * 2^64 + lo mod p, canonical, for top < 2^32:
+// 2^128 = -2^32 (mod p).
+__device__ __forceinline__ uint64_t reduce160(uint64_t lo, uint64_t hi, uint32_t top) {
+  return gl::sub(gl::reduce128(hi, lo), (uint64_t)top << 32);
+}
+
+// a * b + c mod p, canonical (the sum is below 2^128).
+__device__ __forceinline__ uint64_t mul_add(uint64_t a, uint64_t b, uint64_t c) {
+  uint64_t lo, hi;
+  asm("{\n\t"
+      ".reg .u32 a0, a1, b0, b1, c0, c1, c2, c3;\n\t"
+      "mov.b64 {a0, a1}, %2;\n\t"
+      "mov.b64 {b0, b1}, %3;\n\t"
+      "mov.b64 {c0, c1}, %4;\n\t"
+      "mad.lo.cc.u32 c0, a0, b0, c0;\n\t"
+      "madc.hi.cc.u32 c1, a0, b0, c1;\n\t"
+      "madc.lo.cc.u32 c2, a1, b1, 0;\n\t"
+      "madc.hi.u32 c3, a1, b1, 0;\n\t"
+      "mad.lo.cc.u32 c1, a0, b1, c1;\n\t"
+      "madc.hi.cc.u32 c2, a0, b1, c2;\n\t"
+      "addc.u32 c3, c3, 0;\n\t"
+      "mad.lo.cc.u32 c1, a1, b0, c1;\n\t"
+      "madc.hi.cc.u32 c2, a1, b0, c2;\n\t"
+      "addc.u32 c3, c3, 0;\n\t"
+      "mov.b64 %0, {c0, c1};\n\t"
+      "mov.b64 %1, {c2, c3};\n\t"
+      "}"
+      : "=l"(lo), "=l"(hi)
+      : "l"(a), "l"(b), "l"(c));
+  return gl::reduce128(hi, lo);
+}
+
+// Words 1..11 <- the initial matrix times words 1..11 (before the first
+// partial round; its constant vector already added).
+__device__ __forceinline__ void init_layer(uint64_t s[WIDTH]) {
+  uint64_t t[WIDTH - 1];
 #pragma unroll
-  for (int e = 0; e < WIDTH; e++) s[e] = gl::add(s[e], c_rc[r * WIDTH + e]);
-  s[0] = sbox(s[0]);
-  mds_layer(s);
+  for (int i = 0; i < WIDTH - 1; i++) {
+    uint64_t lo = 0, hi = 0;
+    uint32_t top = 0;
+#pragma unroll
+    for (int j = 0; j < WIDTH - 1; j++) mac160(lo, hi, top, s[1 + j], c_init[i * (WIDTH - 1) + j]);
+    t[i] = reduce160(lo, hi, top);
+  }
+#pragma unroll
+  for (int i = 0; i < WIDTH - 1; i++) s[1 + i] = t[i];
+}
+
+// Sparse partial round k: x0 = S(x0) + scalar; x0' = row . x; x_i' = x_i +
+// col_i x0.
+__device__ __forceinline__ void sparse_round(uint64_t s[WIDTH], int k) {
+  const uint64_t x0 = gl::add(sbox(s[0]), c_scalar[k]);
+  uint64_t lo = 0, hi = 0;
+  uint32_t top = 0;
+  mac160(lo, hi, top, x0, c_row[k * WIDTH]);
+#pragma unroll
+  for (int j = 1; j < WIDTH; j++) mac160(lo, hi, top, s[j], c_row[k * WIDTH + j]);
+#pragma unroll
+  for (int i = 1; i < WIDTH; i++) s[i] = mul_add(x0, c_col[k * (WIDTH - 1) + i - 1], s[i]);
+  s[0] = reduce160(lo, hi, top);
 }
 
 __device__ void permute(uint64_t s[WIDTH]) {
-  int r = 0;
+#pragma unroll
+  for (int e = 0; e < WIDTH; e++) s[e] = gl::add(s[e], c_rc[e]);
 #pragma unroll 1
-  for (int k = 0; k < HALF_FULL; k++, r++) full_round(s, r);
+  for (int f = 0; f < HALF_FULL; f++) full_round(s, f);
+  init_layer(s);
 #pragma unroll 1
-  for (int k = 0; k < PARTIAL; k++, r++) partial_round(s, r);
+  for (int k = 0; k < PARTIAL; k++) sparse_round(s, k);
+#pragma unroll
+  for (int e = 0; e < WIDTH; e++) s[e] = gl::add(s[e], c_rc[(HALF_FULL + PARTIAL) * WIDTH + e]);
 #pragma unroll 1
-  for (int k = 0; k < HALF_FULL; k++, r++) full_round(s, r);
+  for (int f = HALF_FULL; f < N_FULL; f++) full_round(s, f);
 }
 
-__global__ void hash_leaves_kernel(const uint64_t* __restrict__ leaves,
-                                   uint64_t* __restrict__ out, int64_t n,
-                                   int64_t w) {
+constexpr int THREADS = 128;
+
+__global__ void __launch_bounds__(THREADS, P2_TP_MIN_BLOCKS)
+    hash_leaves_kernel(const uint64_t* __restrict__ leaves, uint64_t* __restrict__ out, int64_t n,
+                       int64_t w) {
   const int64_t row = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (row >= n) return;
   const uint64_t* src = leaves + row * w;
@@ -112,8 +250,8 @@ __global__ void hash_leaves_kernel(const uint64_t* __restrict__ leaves,
   for (int e = 0; e < 4; e++) out[row * 4 + e] = s[e];
 }
 
-__global__ void permute_states_kernel(const uint64_t* __restrict__ in,
-                                      uint64_t* __restrict__ out, int64_t n) {
+__global__ void __launch_bounds__(THREADS, P2_TP_MIN_BLOCKS)
+    permute_states_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, int64_t n) {
   const int64_t row = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (row >= n) return;
   uint64_t s[WIDTH];
@@ -123,8 +261,6 @@ __global__ void permute_states_kernel(const uint64_t* __restrict__ in,
 #pragma unroll
   for (int e = 0; e < WIDTH; e++) out[row * WIDTH + e] = s[e];
 }
-
-constexpr int THREADS = 128;
 
 unsigned blocks_for(int64_t n) { return (unsigned)((n + THREADS - 1) / THREADS); }
 
@@ -224,15 +360,16 @@ __device__ __forceinline__ uint64_t sbox3(uint64_t x) {
 
 // The products of this lane's MDS row by the words J0..11 of the warp
 // (each taken by shuffle, two 32-bit halves) and the constant k, summed as
-// a tree into two exact 64-bit sums of 32-bit halves (each < 2^42).
-template <int J0>
+// a tree into two exact 64-bit sums of 32-bit halves (each < 2^42).  W: the
+// lanes that hold one state (K2t: the warp; the latency kernels: 16).
+template <int J0, int W = 32>
 __device__ __forceinline__ void mds_sum(uint64_t x, const uint32_t m[WIDTH], uint64_t k,
                                         uint64_t& sum_lo, uint64_t& sum_hi) {
   uint64_t plo[WIDTH], phi[WIDTH];
 #pragma unroll
   for (int j = J0; j < WIDTH; j++) {
-    const uint32_t lo = __shfl_sync(FULL_MASK, (uint32_t)x, j);
-    const uint32_t hi = __shfl_sync(FULL_MASK, (uint32_t)(x >> 32), j);
+    const uint32_t lo = __shfl_sync(FULL_MASK, (uint32_t)x, j, W);
+    const uint32_t hi = __shfl_sync(FULL_MASK, (uint32_t)(x >> 32), j, W);
     plo[j] = (uint64_t)lo * m[j];
     phi[j] = (uint64_t)hi * m[j];
   }
@@ -259,19 +396,21 @@ __device__ __forceinline__ uint64_t mds_finish(uint64_t sum_lo, uint64_t sum_hi)
 
 // One round on the warp's state, round r's constant already added; k: the
 // next round's constant of this lane's word (0 after the last round).
+template <int W = 32>
 __device__ __forceinline__ uint64_t full_round_warp(uint64_t x, const uint32_t m[WIDTH],
                                                     uint64_t k) {
   uint64_t lo, hi;
-  mds_sum<0>(sbox3(x), m, k, lo, hi);
+  mds_sum<0, W>(sbox3(x), m, k, lo, hi);
   return mds_finish(lo, hi);
 }
 
+template <int W = 32>
 __device__ __forceinline__ uint64_t partial_round_warp(uint64_t x, const uint32_t m[WIDTH],
                                                        uint64_t k) {
-  const uint32_t x0_lo = __shfl_sync(FULL_MASK, (uint32_t)x, 0);
-  const uint32_t x0_hi = __shfl_sync(FULL_MASK, (uint32_t)(x >> 32), 0);
+  const uint32_t x0_lo = __shfl_sync(FULL_MASK, (uint32_t)x, 0, W);
+  const uint32_t x0_hi = __shfl_sync(FULL_MASK, (uint32_t)(x >> 32), 0, W);
   uint64_t lo, hi;
-  mds_sum<1>(x, m, k, lo, hi);
+  mds_sum<1, W>(x, m, k, lo, hi);
   const uint64_t t = sbox3(((uint64_t)x0_hi << 32) | x0_lo);
   lo += (t & 0xFFFFFFFFull) * m[0];
   hi += (t >> 32) * m[0];
@@ -283,17 +422,20 @@ __device__ __forceinline__ uint64_t next_constant(const uint64_t* rc, int r, int
 }
 
 // The permutation with the state spread over the warp (lane e holds word
-// e; e is 0 on lanes 12..31).  rc: the round constants in shared memory.
+// e; e is 0 on lanes 12..31), or over each group of W lanes (lane e of its
+// group; e is 0 on lanes 12..W-1).  rc: the round constants in shared
+// memory.
+template <int W = 32>
 __device__ __forceinline__ uint64_t permute_warp(uint64_t x, int e, const uint32_t m[WIDTH],
                                                  const uint64_t* rc) {
   x = gl::add(x, rc[e]);
   int r = 0;
 #pragma unroll 1
-  for (; r < HALF_FULL; r++) x = full_round_warp(x, m, next_constant(rc, r, e));
+  for (; r < HALF_FULL; r++) x = full_round_warp<W>(x, m, next_constant(rc, r, e));
 #pragma unroll 1
-  for (; r < HALF_FULL + PARTIAL; r++) x = partial_round_warp(x, m, next_constant(rc, r, e));
+  for (; r < HALF_FULL + PARTIAL; r++) x = partial_round_warp<W>(x, m, next_constant(rc, r, e));
 #pragma unroll 1
-  for (; r < N_ROUNDS; r++) x = full_round_warp(x, m, next_constant(rc, r, e));
+  for (; r < N_ROUNDS; r++) x = full_round_warp<W>(x, m, next_constant(rc, r, e));
   return x;
 }
 
@@ -346,27 +488,230 @@ __global__ void __launch_bounds__(32) sponge_transition_kernel(
   if (lane < fill) out[WIDTH + lane] = w;
 }
 
+// ---------------------------------------------------------------------------
+// One permutation on a group of 16 lanes (latency regime: K1 and K2 below
+// the threshold, K1m): K2t's warp core with width-16 shuffles, two states
+// a warp.  Lane e < 12 of a group holds state word e; lanes 12..15 take
+// part in the shuffles only.
+// ---------------------------------------------------------------------------
+
+constexpr int GROUP = 16;                // lanes that hold one state
+constexpr int GROUPS = THREADS / GROUP;  // states a 128-thread block holds
+// at most 64 registers (K2t's core takes 64): 8 blocks, 32 warps an SM
+constexpr int LATENCY_MIN_BLOCKS = 8;
+
+// The round constants into shared memory, and this lane's word e and MDS
+// row.
+__device__ __forceinline__ int setup_group(uint64_t* rc, uint32_t m[WIDTH]) {
+  for (int i = threadIdx.x; i < N_ROUNDS * WIDTH; i += blockDim.x) rc[i] = c_rc[i];
+  const int lane = threadIdx.x % GROUP;
+  const int e = lane < WIDTH ? lane : 0;
+#pragma unroll
+  for (int j = 0; j < WIDTH; j++) m[j] = c_mds[e * WIDTH + j];
+  __syncthreads();
+  return e;
+}
+
+__global__ void __launch_bounds__(THREADS, LATENCY_MIN_BLOCKS)
+    hash_leaves_group_kernel(const uint64_t* __restrict__ leaves, uint64_t* __restrict__ out,
+                             int64_t n, int64_t w) {
+  __shared__ uint64_t rc[N_ROUNDS * WIDTH];
+  uint32_t m[WIDTH];
+  const int e = setup_group(rc, m);
+  const int lane = threadIdx.x % GROUP;
+  const int64_t row = blockIdx.x * (int64_t)GROUPS + threadIdx.x / GROUP;
+  if (blockIdx.x * (int64_t)GROUPS + (threadIdx.x / 32) * (32 / GROUP) >= n) return;  // the warp
+  const bool live = row < n;
+  const uint64_t* src = leaves + (live ? row * w : 0);
+  // next: on lanes 0..7, the word of the chunk to come (read ahead)
+  uint64_t x = 0, next = live && lane < RATE && lane < w ? src[lane] : 0ull;
+#pragma unroll 1
+  for (int64_t c = 0; c < w; c += RATE) {
+    const uint64_t cur = next;
+    const int64_t q = c + RATE + lane;
+    next = live && lane < RATE && q < w ? src[q] : 0ull;
+    if (lane < RATE) x = cur;
+    x = permute_warp<GROUP>(x, e, m, rc);
+  }
+  if (live && lane < 4) out[row * 4 + lane] = x;
+}
+
+__global__ void __launch_bounds__(THREADS, LATENCY_MIN_BLOCKS)
+    permute_states_group_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
+                                int64_t n) {
+  __shared__ uint64_t rc[N_ROUNDS * WIDTH];
+  uint32_t m[WIDTH];
+  const int e = setup_group(rc, m);
+  const int lane = threadIdx.x % GROUP;
+  const int64_t row = blockIdx.x * (int64_t)GROUPS + threadIdx.x / GROUP;
+  if (blockIdx.x * (int64_t)GROUPS + (threadIdx.x / 32) * (32 / GROUP) >= n) return;  // the warp
+  const bool live = row < n && lane < WIDTH;
+  uint64_t x = live ? in[row * WIDTH + lane] : 0ull;
+  x = permute_warp<GROUP>(x, e, m, rc);
+  if (live) out[row * WIDTH + lane] = x;
+}
+
+unsigned group_blocks_for(int64_t n) { return (unsigned)((n + GROUPS - 1) / GROUPS); }
+
+// ---------------------------------------------------------------------------
+// K1m: the Merkle levels above n digests, n_levels of them, in one launch.
+// Level l has n >> (l + 1) rows, row i the hash of digests 2i and 2i + 1 of
+// the level below (one 8-word chunk, zero capacity); the levels lie one
+// after another in out, level 0 first.
+// ---------------------------------------------------------------------------
+
+constexpr int TREE_THREADS = 256;
+constexpr int TREE_ROWS = TREE_THREADS / GROUP;  // 16: a block's rows at a stage's first level
+constexpr int TREE_DEPTH = 5;                    // levels a stage walks: 16, 8, 4, 2, 1 rows
+constexpr int TREE_FANIN = 2 * TREE_ROWS;        // blocks whose roots feed one block of the next stage
+
+// Hashes pair rows [0, rows) of src (8 words a row; rows <= TREE_ROWS) into
+// dst and dst2 (4 words a row); `ldcg`: read src through L2 only (words
+// other blocks wrote).  Every thread of the block calls it.
+__device__ __forceinline__ void hash_pairs(const uint64_t* src, uint64_t* dst, uint64_t* dst2,
+                                           int64_t rows, bool ldcg, int e, const uint32_t m[WIDTH],
+                                           const uint64_t* rc) {
+  const int lane = threadIdx.x % GROUP;
+  const int row = threadIdx.x / GROUP;
+  uint64_t x = 0;
+  if (row < rows && lane < RATE) {
+    const uint64_t* a = src + row * RATE + lane;
+    x = ldcg ? __ldcg((const unsigned long long*)a) : *a;
+  }
+  __syncthreads();  // every input read before any output (src may alias dst) is written
+  if ((threadIdx.x / 32) * (32 / GROUP) < rows) {  // the warp has a row
+    x = permute_warp<GROUP>(x, e, m, rc);
+    if (row < rows && lane < 4) {
+      dst[row * 4 + lane] = x;
+      dst2[row * 4 + lane] = x;
+    }
+  }
+  __syncthreads();
+}
+
+// In stages: at a stage's first level l, node b (block b at stage 0) owns
+// rows [16 b, 16 b + 16) and hashes them and the 4 levels below them down
+// to one root, through shared memory; then the last of each 32 sibling
+// nodes to finish (a counter each, and __threadfence) carries on as node
+// b / 32 of the next stage, reading their roots back.  A level is one pass
+// of one block wherever it lies, so a tree's critical path is one
+// permutation a level.  counters: zero, one for each group of each stage.
+__global__ void __launch_bounds__(TREE_THREADS)
+    tree_levels_kernel(const uint64_t* __restrict__ digests, uint64_t* __restrict__ out, int64_t n,
+                       int n_levels, unsigned* __restrict__ counters) {
+  __shared__ uint64_t rc[N_ROUNDS * WIDTH];
+  __shared__ uint64_t level[TREE_ROWS * 4];
+  __shared__ bool last;
+  uint32_t m[WIDTH];
+  const int e = setup_group(rc, m);
+  const int64_t rows0 = n >> 1;
+  int64_t node = blockIdx.x, nodes = gridDim.x;
+  int64_t off = 0;  // the first row of level l in out
+  const uint64_t* src = digests;  // the level below the stage's first (pair rows)
+  bool ldcg = false;
+  unsigned* group_counters = counters;
+  int l = 0;
+  for (;;) {
+    for (int d = 0; d < TREE_DEPTH && l < n_levels; d++, l++) {
+      const int64_t rows = rows0 >> l, per = TREE_ROWS >> d, base = node * per;
+      const int64_t here = per < rows - base ? per : rows - base;
+      hash_pairs(d == 0 ? src + base * RATE : level, level, out + (off + base) * 4, here,
+                 d == 0 && ldcg, e, m, rc);
+      off += rows;
+    }
+    if (l == n_levels) return;
+    const int64_t group = node / TREE_FANIN;
+    const int64_t members = nodes - group * TREE_FANIN < TREE_FANIN ? nodes - group * TREE_FANIN
+                                                                    : TREE_FANIN;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(group_counters + group, 1u) == members - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    group_counters += (nodes + TREE_FANIN - 1) / TREE_FANIN;
+    nodes = (nodes + TREE_FANIN - 1) / TREE_FANIN;
+    node = group;
+    src = out + (off - (rows0 >> (l - 1))) * 4;
+    ldcg = true;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Installs the round constants [30 * 12] and the MDS matrix [12 * 12] on the
-// current device; the host owns the tables (poseidon_constants.py).
-int p2_poseidon_init(const uint64_t* rc, const uint32_t* mds) {
-  cudaMemcpyToSymbol(c_rc, rc, sizeof(uint64_t) * N_ROUNDS * WIDTH);
-  cudaMemcpyToSymbol(c_mds, mds, sizeof(uint32_t) * WIDTH * WIDTH);
+// Installs the tables on the current device; the host owns and derives them
+// (poseidon_constants.py, poseidon_sparse.py, poseidon_cuda.py): the round
+// constants [30 * 12], the MDS matrix [12 * 12], the constants folded into
+// each full round's MDS sum [8 * 12], and the sparse partial rounds' initial
+// matrix [11 * 11], scalars [22], rows [22 * 12] and columns [22 * 11].
+int p2_poseidon_init(const uint64_t* rc, const uint32_t* mds, const uint64_t* full_next,
+                     const uint64_t* init, const uint64_t* scalar, const uint64_t* row,
+                     const uint64_t* col) {
+  cudaMemcpyToSymbol(c_rc, rc, sizeof(c_rc));
+  cudaMemcpyToSymbol(c_mds, mds, sizeof(c_mds));
+  cudaMemcpyToSymbol(c_full_next, full_next, sizeof(c_full_next));
+  cudaMemcpyToSymbol(c_init, init, sizeof(c_init));
+  cudaMemcpyToSymbol(c_scalar, scalar, sizeof(c_scalar));
+  cudaMemcpyToSymbol(c_row, row, sizeof(c_row));
+  cudaMemcpyToSymbol(c_col, col, sizeof(c_col));
   return (int)cudaGetLastError();
 }
 
-int p2_hash_leaves(const void* leaves, void* out, int64_t n, int64_t w, void* stream) {
-  hash_leaves_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)leaves, (uint64_t*)out, n, w);
+// The blocks of 128 threads an SM holds of the throughput kernels:
+// blocks[0] K1's, blocks[1] K2's.
+int p2_poseidon_occupancy(int* blocks) {
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[0], hash_leaves_kernel,
+                                                                  THREADS, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[1], permute_states_kernel,
+                                                        THREADS, 0);
+  return (int)err;
+}
+
+// K1; regime 0: throughput, 1: latency.
+int p2_hash_leaves(const void* leaves, void* out, int64_t n, int64_t w, int regime, void* stream) {
+  if (regime == 0)
+    hash_leaves_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint64_t*)leaves, (uint64_t*)out, n, w);
+  else
+    hash_leaves_group_kernel<<<group_blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint64_t*)leaves, (uint64_t*)out, n, w);
   return (int)cudaGetLastError();
 }
 
-int p2_permute_states(const void* in, void* out, int64_t n, void* stream) {
-  permute_states_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)in, (uint64_t*)out, n);
+// K2; regime as for K1.
+int p2_permute_states(const void* in, void* out, int64_t n, int regime, void* stream) {
+  if (regime == 0)
+    permute_states_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint64_t*)in, (uint64_t*)out, n);
+  else
+    permute_states_group_kernel<<<group_blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint64_t*)in, (uint64_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
+// The words of zeroed counters p2_tree_levels needs for n digests.
+int64_t p2_tree_counters(int64_t n) {
+  int64_t nodes = ((n >> 1) + TREE_ROWS - 1) / TREE_ROWS, total = 0;
+  while (nodes > 1) {
+    nodes = (nodes + TREE_FANIN - 1) / TREE_FANIN;
+    total += nodes;
+  }
+  return total + 1;
+}
+
+// K1m.  digests: [n, 4], n a multiple of 2^n_levels (n_levels >= 1); out:
+// the levels, [n - n / 2^n_levels, 4]; counters: p2_tree_counters(n) words,
+// 0 at the launch.
+int p2_tree_levels(const void* digests, void* out, int64_t n, int n_levels, void* counters,
+                   void* stream) {
+  if (n_levels < 1 || n % (2LL << (n_levels - 1)) != 0) return (int)cudaErrorInvalidValue;
+  const int64_t rows0 = n >> 1;
+  const unsigned blocks = (unsigned)((rows0 + TREE_ROWS - 1) / TREE_ROWS);
+  tree_levels_kernel<<<blocks, TREE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint64_t*)digests, (uint64_t*)out, n, n_levels, (unsigned*)counters);
   return (int)cudaGetLastError();
 }
 

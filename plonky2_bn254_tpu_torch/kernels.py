@@ -34,9 +34,11 @@ NVCC_FLAGS = (
 )
 _COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared")
 
-# K1 Poseidon leaf sponge, K2 raw permutation, K2t one transcript transition
-# (absorb and squeeze on one sponge state), K3 NTT/iNTT, K4 coset LDE.
-KERNEL_IDS = ("K1", "K2", "K2t", "K3", "K4")
+# K1 Poseidon leaf sponge, K1m Merkle levels (K1's Merkle use: every level
+# below the regime threshold in one launch), K2 raw permutation, K2t one
+# transcript transition (absorb and squeeze on one sponge state), K3
+# NTT/iNTT, K4 coset LDE.
+KERNEL_IDS = ("K1", "K1m", "K2", "K2t", "K3", "K4")
 LAUNCHES: Counter = Counter({k: 0 for k in KERNEL_IDS})
 # kernel id -> Counter of the keys its launches were made with (see the wrappers)
 CALLS: dict = {k: Counter() for k in KERNEL_IDS}
@@ -46,14 +48,19 @@ _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 _U64 = ctypes.c_uint64
 _SIGNATURES = {
-    "p2_poseidon_init": (_VP, _VP),
-    "p2_hash_leaves": (_VP, _VP, _I64, _I64, _VP),
-    "p2_permute_states": (_VP, _VP, _I64, _VP),
+    "p2_poseidon_init": (_VP,) * 7,
+    "p2_poseidon_occupancy": (_VP,),
+    "p2_hash_leaves": (_VP, _VP, _I64, _I64, _INT, _VP),
+    "p2_permute_states": (_VP, _VP, _I64, _INT, _VP),
+    "p2_tree_levels": (_VP, _VP, _I64, _INT, _VP, _VP),
+    "p2_tree_counters": (_I64,),
     "p2_sponge_transition": (_VP, _VP, _VP, _VP, _INT, _VP, _INT, _INT, _INT, _VP),
     "p2_ntt_rows": (_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT, _INT, _U64, _VP),
     "p2_ntt_columns": (_VP, _VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT, _INT, _VP),
     "p2_ntt_rows_t": (_VP, _VP, _VP, _I64, _INT, _INT, _INT, _VP),
 }
+
+_RESTYPES = {"p2_tree_counters": _I64}  # the others return a CUDA error code
 
 
 class BuildInfo:
@@ -130,7 +137,7 @@ def library() -> ctypes.CDLL:
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(args)
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -1,8 +1,11 @@
 """Poseidon Merkle tree with cap, built level by level on the device.
 
-Port of `plonky2_bn254_tpu/prover/merkle.py`.  Leaves and every level go
-through the leaf-sponge kernel K1 (`field/poseidon_cuda.py`): a level is the
-sponge of `[m/2, 8]` pair rows, since two_to_one(l, r) == hash_no_pad(l || r).
+Port of `plonky2_bn254_tpu/prover/merkle.py`.  The leaves go through the
+leaf-sponge kernel K1 and the levels above them through
+`poseidon_cuda.hash_tree_levels` (`field/poseidon_cuda.py`): a level is the
+sponge of `[m/2, 8]` pair rows, since two_to_one(l, r) == hash_no_pad(l || r);
+the levels that fill the card are one K1 launch each, all the others one
+K1m launch.
 On a mesh (`ShardedTree`) each rank hashes its contiguous block of leaves
 into its own subtree; only the subtree roots or the cap are gathered.
 """
@@ -51,12 +54,7 @@ def device_tree_levels(leaves: torch.Tensor, cap_height: int) -> List[torch.Tens
     n_levels = (n.bit_length() - 1) - cap_height
     assert n_levels >= 0, "cap larger than tree"
     digests = poseidon_cuda.hash_leaves(leaves.contiguous())
-    levels = [digests]
-    for _ in range(n_levels):
-        pairs = digests.reshape(-1, 8)  # rows 2i, 2i+1 side by side
-        digests = poseidon_cuda.hash_leaves(pairs)
-        levels.append(digests)
-    return levels
+    return [digests] + poseidon_cuda.hash_tree_levels(digests, n_levels)
 
 
 def build_tree(leaves: torch.Tensor, cap_height: int) -> MerkleTree:
@@ -125,7 +123,6 @@ def sharded_tree(leaves: torch.Tensor, cap_height: int, mesh: Mesh) -> ShardedTr
         local = device_tree_levels(leaves, cap_height - d_log)
         return ShardedTree(local=local, top=[all_gather(mesh, local[-1], axis=0)])
     local = device_tree_levels(leaves, 0)
-    top = [all_gather(mesh, local[-1], axis=0)]
-    for _ in range(d_log - cap_height):
-        top.append(poseidon_cuda.hash_leaves(top[-1].reshape(-1, 8)))
-    return ShardedTree(local=local, top=top)
+    roots = all_gather(mesh, local[-1], axis=0)
+    return ShardedTree(local=local,
+                       top=[roots] + poseidon_cuda.hash_tree_levels(roots, d_log - cap_height))

@@ -26,7 +26,6 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from plonky2_bn254_tpu_torch import bounds, kernels  # noqa: E402
 from plonky2_bn254_tpu_torch.field import poseidon_cuda as pc  # noqa: E402
-from plonky2_bn254_tpu_torch.field.poseidon_constants import MDS, ROUND_CONSTANTS  # noqa: E402
 from plonky2_bn254_tpu_torch.interop import tensor_from_u64  # noqa: E402
 
 # G2's opening absorb (its longest chain), a FRI layer's cap and beta, the
@@ -59,13 +58,11 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     lib = bounds.probe_library(kernels.BUILD_DIR / "op_probe")
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.p2_poseidon_init.argtypes = [vp, vp]
+    lib.p2_poseidon_init.argtypes = [vp] * 7
     lib.p2_sponge_transition_1t.argtypes = [vp, vp, vp, vp, i32, vp, i32, i32, i32, vp]
     for f in (lib.p2_poseidon_init, lib.p2_sponge_transition_1t):
         f.restype = i32
-    rc = np.ascontiguousarray(ROUND_CONSTANTS, dtype=np.uint64)
-    mds = np.ascontiguousarray(MDS, dtype=np.uint32)
-    kernels.check(lib.p2_poseidon_init(rc.ctypes.data, mds.ctypes.data), "rung constants")
+    pc.install_constants(lib)
 
     rng = np.random.default_rng(7)
     print(card)

@@ -78,7 +78,7 @@ def test_permutation_ops_sparse_partial_rounds():
     dense = 8 * full + 22 * dense_partial
     assert bounds.permutation_ops() < dense
     assert bounds.permutation_ops() > 8 * full + 22 * 4 * c["mul"]
-    ops, nbytes = bounds.hash_leaves_work(5, 17)
+    ops, nbytes, _ = bounds.hash_leaves_work(5, 17)
     assert ops == 5 * 3 * bounds.permutation_ops() and nbytes == 5 * (17 + 4) * 8
 
 

@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels K1-K4 and K2t against their plain PyTorch versions.
+"""Hand-written CUDA kernels K1-K4, K1m and K2t against their plain PyTorch versions.
 
 These need an NVIDIA card with nvcc and skip without one.  On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -82,6 +82,65 @@ def test_k2_single_state_in_the_device_challenger(card):
     assert [int(v) for v in got] == host.get_n_challenges(11)
     assert dict(kernels.CALLS["K2"]) == {}
     assert dict(kernels.CALLS["K2t"]) == {(0, 37, 0, 11): 1}
+
+
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+def test_k1_both_sides_of_the_regime_threshold(card, offset):
+    """K1 at w = 8 just below, at and above the rows where the wrapper
+    switches to the throughput kernel."""
+    rows = poseidon_cuda.device_threshold("K1", card) + offset
+    assert poseidon_cuda.device_regime("K1", rows, card) == ("latency" if offset < 0 else "throughput")
+    x = _rand((rows, 8), card, full_range=True)
+    assert torch.equal(poseidon_cuda.hash_leaves(x), poseidon_cuda.hash_leaves_plain(x))
+
+
+@pytest.mark.parametrize("regime", ["throughput", "latency"])
+@pytest.mark.parametrize("shape", [(1, 781), (3, 781), (300, 781), (1000, 8), (7, 13), (3, 0),
+                                   (5, 9), (33, 16), (4096, 134)])
+def test_k1_each_regime(card, shape, regime):
+    x = _rand(shape, card, full_range=True)
+    assert torch.equal(poseidon_cuda.launch_hash_leaves(x, regime), poseidon_cuda.hash_leaves_plain(x))
+
+
+@pytest.mark.parametrize("regime", ["throughput", "latency"])
+@pytest.mark.parametrize("n", [1, 129, 4096, 1 << 20])
+def test_k2_each_regime(card, n, regime):
+    x = _rand((n, 12), card, full_range=True)
+    assert torch.equal(poseidon_cuda.launch_permute_states(x, regime),
+                       poseidon_cuda.permute_states_plain(x))
+
+
+def test_k2_grinds_take_their_regimes(card):
+    """The PoW grind of DEFAULT_CONFIG ([2^20, 12]) runs in the throughput
+    regime, h2g's 8-bit grind ([4096, 12]) in the latency regime."""
+    assert poseidon_cuda.device_regime("K2", 1 << 20, card) == "throughput"
+    assert poseidon_cuda.device_regime("K2", 4096, card) == "latency"
+
+
+# (digests, levels): a 2^17-leaf tree to cap 4 (its two lowest levels
+# through K1), 2^13 to cap 0, 2 leaves, FRI-layer trees, an uneven count
+TREE_SHAPES = [(1 << 17, 13), (1 << 13, 13), (2, 1), (64, 2), (8192, 9), (1 << 15, 11), (768, 8)]
+
+
+@pytest.mark.parametrize("n, n_levels", TREE_SHAPES)
+def test_k1m_tree_levels(card, n, n_levels):
+    d = _rand((n, 4), card)
+    kernels.reset_launches()
+    got = poseidon_cuda.hash_tree_levels(d, n_levels)
+    assert kernels.LAUNCHES["K1m"] == 1
+    want = poseidon_cuda.hash_tree_levels_plain(d, n_levels)
+    assert len(got) == len(want) == n_levels
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_k1m_one_launch_for_a_whole_large_tree(card):
+    """K1m given every level of a 2^17-digest tree: 512 blocks, top levels
+    of more rows than one block holds."""
+    d = _rand((1 << 17, 4), card)
+    got = poseidon_cuda.launch_tree_levels(d, 17)
+    for g, w in zip(got, poseidon_cuda.hash_tree_levels_plain(d, 17)):
+        assert torch.equal(g, w)
 
 
 # (pending words, absorbed words, pending outputs, squeezes): fill 0 and 7, an
