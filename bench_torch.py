@@ -16,7 +16,7 @@ The loop is closed, one proof at a time:
   2. one warm-up proof (cold tables), reported as warmup_s;
   3. the correctness gate: that proof verifies, and the same proof with one
      opening flipped is rejected;
-  4. one proof under the synchronising TimingTree, for stages_s;
+  4. one proof under the TimingTree, for stages_s;
   5. BENCH_REPEATS (default 5) proofs without the timer, each wall on the
      host clock around work that ends in torch.cuda.synchronize().
 The proofs of steps 4 and 5 must equal the gated proof field by field
@@ -205,7 +205,7 @@ def measure(machine: str, n_ops: int, config, repeats: int, device, progress=Non
     tt = TimingTree(enabled=True)
     t0 = time.perf_counter()
     proof = one_proof(tt)
-    log(f"# proof under the synchronising timer: {time.perf_counter() - t0:.3f} s")
+    log(f"# proof under the span timer (TimingTree): {time.perf_counter() - t0:.3f} s")
     check(proof, "the proof under the timer")
     tt.print(out=sys.stderr)
     stages = {}

@@ -29,7 +29,7 @@ Phases (any failure exits non-zero before the result line):
      wall and its synchronising CUDA operations (torch.cuda sync debug
      mode) by site; the proofs equal field by field; the device-FS
      proof verifies and is rejected with one opening flipped; one more
-     host-FS proof under the synchronising timer gives its stage times; the
+     host-FS proof under the span timer (TimingTree) gives its stage times; the
      wrappers record the shape of every launch (kernels.CALLS);
   5m. the mesh path, right after fq_exp's first proof: the same 2^16 x 427
      trace (written once to a file the ranks map, so no rank builds it)
@@ -92,7 +92,7 @@ Phases (any failure exits non-zero before the result line):
      another, ~60 ms each on the card), timed beside its latency bound and,
      at its most launched key, its plain version;
   9. per path, the stage times and wall of one proof under the
-     synchronising timer and its peak device memory; on the machine paths
+     span timer (TimingTree) and its peak device memory; on the machine paths
      its stages beside the host-FS proof's of phase 5.
 
 Prints each phase's seconds, a JSON line for the native library and per
@@ -611,7 +611,7 @@ def flow_run(path: Path, trace, device_fs: bool):
 
 def flow_stages(path: Path, trace, device_fs: bool) -> dict:
     """Top-level stage times of one proof of `trace` in one Fiat–Shamir
-    flow under the synchronising timer (the host flow's transcript work
+    flow under the span timer (TimingTree) (the host flow's transcript work
     falls between its stages; the device flow's is in fs1-fs4), with
     "proof" the whole proof."""
     from plonky2_bn254_tpu_torch.utils.timing import TimingTree
@@ -622,14 +622,14 @@ def flow_stages(path: Path, trace, device_fs: bool) -> dict:
     path.prove_trace(trace, tt, device_fs=device_fs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return {**{stage: secs for depth, stage, secs in tt.records if depth == 0}, "proof": wall}
+    return {**tt.stages(), "proof": wall}
 
 
 def first_proof(path: Path) -> dict:
     """Trace the path's inputs once; prove the trace with the transcript on
     the device (the default on the card), on the host and on the device
     again; the proofs equal field by field; the stages of one more host-FS
-    proof under the synchronising timer (phase 9 sets them beside the
+    proof under the span timer (TimingTree) (phase 9 sets them beside the
     device flow's); the device-FS proof verifies, and is rejected with one
     opening flipped."""
     from plonky2_bn254_tpu_torch.field.extension import GLExt
@@ -906,7 +906,7 @@ class Compose:
         torch.cuda.synchronize()
         witness_s = time.perf_counter() - t0
         calls = {k: dict(kernels.CALLS[k]) for k in kernels.KERNEL_IDS}
-        stages = {stage: secs for _, stage, secs in self.hook.timing.records}
+        stages = {stage: secs for depth, stage, secs in self.hook.timing.records if depth == 0}
         for out_t, want in self.outs:
             if out_t.get_witness(self.values) != want:
                 raise AssertionError("compose: an fq_exp output differs from pow(x, s, P)")
@@ -1078,7 +1078,8 @@ def hash_to_g2_phase(device) -> dict:
     values = circuit.generate_witness(pw, device)
     torch.cuda.synchronize()
     res["witness_s"] = time.perf_counter() - t0
-    res["witness_stages_s"] = {stage: secs for _, stage, secs in hook.timing.records}
+    res["witness_stages_s"] = {stage: secs for depth, stage, secs in hook.timing.records
+                                if depth == 0}
     if out.get_witness(values) != want:
         raise AssertionError("h2g: the circuit's output differs from the native hash_to_g2")
     if not {"fq_exp", "g2_scalar_mul"} <= set(hook.proof):
@@ -1124,7 +1125,7 @@ def hash_to_g2_phase(device) -> dict:
 
 
 def synced_proof(path) -> dict:
-    """Stage times and wall of one proof under the synchronising timer."""
+    """Stage times and wall of one proof under the span timer (TimingTree)."""
     from plonky2_bn254_tpu_torch.utils.timing import TimingTree
 
     torch.cuda.reset_peak_memory_stats(path.device)
@@ -1139,7 +1140,7 @@ def synced_proof(path) -> dict:
         log(f"  {'  ' * depth}{secs:8.3f}s  {stage}")
     rate = f" ({N_OPS / wall:.2f} ops/s)" if path.name in PATHS else ""
     log(f"  synchronised proof wall {wall:.3f} s{rate}; peak device memory {peak:.2f} GB")
-    stages = {stage: secs for depth, stage, secs in tt.records if depth == 0}
+    stages = tt.stages()
     host = getattr(path, "host_fs_stages", None)
     if host:
         dev = {**{k: v for k, v in stages.items() if k != "trace gen"},

@@ -22,6 +22,7 @@ import torch
 
 from ..field import goldilocks as gl
 from ..interop import tensor_from_u64
+from ..utils import timing
 
 
 @dataclass(frozen=True)
@@ -342,6 +343,10 @@ class Circuit:
         examined only when one of its deps lands (a rescan loop would be
         quadratic on recursion-scale circuits).  Hooks that prove at
         witness time (the BN254 batch STARKs) do so on `device`."""
+        with timing.get(None).scope("generate_witness"):
+            return self._run_generators(pw, device)
+
+    def _run_generators(self, pw: Witness, device) -> Dict[int, int]:
         b = self.builder
         for hook in b.hooks.values():
             hook.device = torch.device(device)

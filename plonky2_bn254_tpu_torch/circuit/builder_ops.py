@@ -46,7 +46,7 @@ class Bn254Hook:
         self.proof = None  # {kind: (proof, ctl_values)}
         self.proof_targets = {}  # {kind: StarkProofTarget} (set at build)
         self.device = torch.device("cuda")  # set by Circuit.generate_witness
-        self.timing = None  # optional TimingTree for the witness-time stages
+        self.timing = None  # TimingTree of the witness-time stages; None: the process tree
 
     def constrain(self, builder: CircuitBuilder):
         """Emit the deferred batch-STARK generators (hook.rs:56-90)."""
@@ -166,13 +166,14 @@ class Bn254Hook:
             ctl_values = machine.generate_ctl_values(stark_inputs)
             assert trace.shape[0] == 1 << degree_bits
             with tt.scope(f"{kind} prove"):
-                proof = prove_mod.prove(stark, trace, ctl_values, config)
+                proof = prove_mod.prove(stark, trace, ctl_values, config, timing=tt)
             del trace
             # self-verify (stark_proof.rs:136-179 does the same)
             with tt.scope(f"{kind} self-verify"):
                 verify_mod.verify(stark, proof, ctl_values, config)
             hook.proof[kind] = (proof, ctl_values)
-            return set_stark_proof_target(proof_t, proof)
+            with tt.scope("inject"):
+                return set_stark_proof_target(proof_t, proof)
 
         builder.add_generator(
             Generator(

@@ -767,11 +767,11 @@ def build_outer_trace(data: OuterData, values: Dict[int, int]):
     B = data.table_bits
     dev = data.device
 
-    # extended witness: circuit targets then aux wires (filled per block)
-    W = witness_tensor(values, n, dev)
-
+    # the device fills the constant columns while the host packs the witness
     trace = torch.zeros((lay.width, n), dtype=torch.int64, device=dev)
     trace[lay.idx :] = data.const_cols
+    # extended witness: circuit targets then aux wires (filled per block)
+    W = witness_tensor(values, n, dev)
 
     row = 0
     for blk in data.blocks:
@@ -874,9 +874,10 @@ def prove_outer(data: OuterData, values: Dict[int, int], config=None, timing=Non
 
     config = config or DEFAULT_CONFIG
     tt = timing_mod.get(timing)
-    with tt.scope("outer trace"):
-        trace, public_values, ctl_values = build_outer_trace(data, values)
-    proof = prove_mod.prove(data.stark, trace, ctl_values, config, timing=timing)
+    with tt.scope("prove_outer"):
+        with tt.scope("outer trace"):
+            trace, public_values, ctl_values = build_outer_trace(data, values)
+        proof = prove_mod.prove(data.stark, trace, ctl_values, config, timing=tt)
     return proof, public_values
 
 

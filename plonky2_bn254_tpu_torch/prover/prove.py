@@ -548,6 +548,13 @@ def prove(
     rows split over to be a power of two >= 2 with n a multiple of D^2.
     """
     tt = timing_mod.get(timing)
+    with tt.scope("prove"):
+        return _prove(stark, trace_rows, ctl_values, config, tt, device_fs, mesh, mesh_axis,
+                      col_axis)
+
+
+def _prove(stark, trace_rows, ctl_values, config, tt, device_fs, mesh, mesh_axis,
+           col_axis) -> Proof:
     n, w = trace_rows.shape
     assert w == stark.width
     n_log = n.bit_length() - 1
@@ -600,7 +607,7 @@ def prove(
             trace_cols, [b for b, _ in challenges], [g for _, g in challenges],
             ctl_weight_specs,
         )
-        a_coeffs, a_lde, a_levels = commit_values(aux_cols, config, mesh=mesh)
+        a_coeffs, a_lde, a_levels = commit_values(aux_cols, config, tt, mesh)
         aux_cap = u64_from_tensor(_cap(a_levels))
     ch.observe_cap(aux_cap)
     del aux_cols, trace_cols  # queries read the LDEs, not the values
@@ -862,13 +869,14 @@ def _prove_device_fs(stark: Stark, trace_cols: torch.Tensor, ctl_values, config:
     rate = config.rate_bits
     nc = config.num_challenges
     dev = trace_cols.device
-    ch = dcm.DeviceChallenger(dev)
-    ctl_rows = [dcm.ctl_rows_device(ctl_values[c], dev) for c in range(len(stark.ctls))]
-    ctl_cols = [
-        torch.tensor([c for c, _ in ctl.flat_weights(1, gl.P)], dtype=torch.int64).to(
-            dev, non_blocking=True)
-        for ctl in stark.ctls
-    ]
+    with tt.scope("setup"):
+        ch = dcm.DeviceChallenger(dev)
+        ctl_rows = [dcm.ctl_rows_device(ctl_values[c], dev) for c in range(len(stark.ctls))]
+        ctl_cols = [
+            torch.tensor([c for c, _ in ctl.flat_weights(1, gl.P)], dtype=torch.int64).to(
+                dev, non_blocking=True)
+            for ctl in stark.ctls
+        ]
 
     # ---- S1: trace commit + fs1 -----------------------------------------
     with tt.scope("trace commit"):
@@ -882,7 +890,7 @@ def _prove_device_fs(stark: Stark, trace_cols: torch.Tensor, ctl_values, config:
     with tt.scope("aux"):
         aux_cols = _make_aux(stark, mesh)(trace_cols, list(betas), list(gammas),
                                           ctl_weight_specs)
-        a_coeffs, a_lde, a_levels = commit_values(aux_cols, config, mesh=mesh)
+        a_coeffs, a_lde, a_levels = commit_values(aux_cols, config, tt, mesh)
     del aux_cols, trace_cols  # queries read the LDEs, not the values
     with tt.scope("fs2"):
         alphas, alpha_pows = _fs2(ch, nc, _cap(a_levels))
@@ -931,14 +939,19 @@ def _prove_device_fs(stark: Stark, trace_cols: torch.Tensor, ctl_values, config:
             "pow_ok": res["pow_ok"], "q_idx": q_idx, "init": init, "layers": res["layers"],
         })
     assert bool(host["pow_ok"]), "the device proof-of-work check failed"
+    with tt.scope("proof assembly"):
+        return _proof_from_host(host, res["layers_cfg"], n_log)
 
+
+def _proof_from_host(host, layers_cfg, n_log: int) -> Proof:
+    """The `Proof` from the one pull's host arrays."""
     query_indices = [int(v) for v in host["q_idx"]]
     fc0, fc1 = host["final"]
     fri_query_layers = [
         [
             fri_mod.FriLayerProof(group_values=rows[qi].reshape(1 << a, 2),
                                   path=[lvl[qi] for lvl in paths])
-            for (rows, paths), (_, _, a) in zip(host["layers"], res["layers_cfg"])
+            for (rows, paths), (_, _, a) in zip(host["layers"], layers_cfg)
         ]
         for qi in range(len(query_indices))
     ]

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import timing
 from . import bigint, fq_mul, modular, round_flags, rows
 from .air import eval_eq
 from .layout import Layout, MODULUS_ZERO_AUX_LAYOUT, ROUND_FLAGS_LAYOUT
@@ -71,16 +72,21 @@ def _aux_cols(aux: modular.ModulusZeroAux):
 def generate_trace_core(x_limbs, s_bits, timestamps, min_rows: int = 0):
     """[n,16] x limbs, [n,256] scalar bits, [n] timestamps -> [num_rows, 427]
     int64 rows (range-check columns zero)."""
-    sqs, prods = _chains(x_limbs, s_bits)
+    tt = timing.get(None)
+    with tt.scope("chains"):
+        sqs, prods = _chains(x_limbs, s_bits)
     sq_lo, p_prev, p_full = sqs[:N_BITS], prods[:N_BITS], prods[1:]
     # mul rows (counter 2k): a = p_{k-1}, b = sq_k; square rows: a = b = sq_k
-    c, aux = fq_mul.generate_fq_mul(torch.stack([p_prev, sq_lo]), torch.stack([sq_lo, sq_lo]))
-    even_tail, odd_tail = rows.tails(s_bits, timestamps)
-    mul_rows = ([sq_lo, p_full, p_prev, sq_lo, c[0]]  # square col of a mul row = sq_k
-                + _aux_cols(modular.index_tree(aux, 0)) + even_tail)
-    sq_rows = ([c[1], p_full, sq_lo, sq_lo, c[1]]  # square col of a square row = sq_{k+1}
-               + _aux_cols(modular.index_tree(aux, 1)) + odd_tail)
-    return rows.assemble(mul_rows, sq_rows, min_rows)
+    with tt.scope("witness pass"):
+        c, aux = fq_mul.generate_fq_mul(torch.stack([p_prev, sq_lo]),
+                                        torch.stack([sq_lo, sq_lo]))
+    with tt.scope("assemble"):
+        even_tail, odd_tail = rows.tails(s_bits, timestamps)
+        mul_rows = ([sq_lo, p_full, p_prev, sq_lo, c[0]]  # square col of a mul row = sq_k
+                    + _aux_cols(modular.index_tree(aux, 0)) + even_tail)
+        sq_rows = ([c[1], p_full, sq_lo, sq_lo, c[1]]  # square col of a square row = sq_{k+1}
+                   + _aux_cols(modular.index_tree(aux, 1)) + odd_tail)
+        return rows.assemble(mul_rows, sq_rows, min_rows)
 
 
 def add_range_checks(trace: torch.Tensor) -> torch.Tensor:
@@ -93,10 +99,15 @@ def generate_trace(inputs, min_rows: int = 1 << LIMB_BITS,
     """inputs: list of (s, x, timestamp) python ints -> [num_rows, 427] int64
     trace on `device`: the card unless the caller asks for the CPU
     (`device="cpu"`); without a card the default raises."""
-    dev = rows.bundle([(x,) for _, x, _ in inputs], 1, [(s, t) for s, _, t in inputs], device)
-    trace = generate_trace_core(dev[:, :N_LIMBS], dev[:, N_LIMBS : N_LIMBS + N_BITS],
-                                dev[:, -1], min_rows)
-    return add_range_checks(trace)
+    tt = timing.get(None)
+    with tt.scope("generate_trace"):
+        with tt.scope("inputs"):
+            dev = rows.bundle([(x,) for _, x, _ in inputs], 1,
+                              [(s, t) for s, _, t in inputs], device)
+        trace = generate_trace_core(dev[:, :N_LIMBS], dev[:, N_LIMBS : N_LIMBS + N_BITS],
+                                    dev[:, -1], min_rows)
+        with tt.scope("range checks"):
+            return add_range_checks(trace)
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +226,8 @@ def generate_ctl_values(inputs):
     from .limbs import h_int_to_limbs
 
     ins, outs = [], []
-    for s, x, t in inputs:
-        ins.append(h_int_to_limbs(x, 16) + h_int_to_limbs(s, 16) + [t])
-        outs.append(h_int_to_limbs(pow(x, s, BN254_P), 16) + [t])
+    with timing.get(None).scope("generate_ctl_values"):
+        for s, x, t in inputs:
+            ins.append(h_int_to_limbs(x, 16) + h_int_to_limbs(s, 16) + [t])
+            outs.append(h_int_to_limbs(pow(x, s, BN254_P), 16) + [t])
     return {0: ins, 1: outs}

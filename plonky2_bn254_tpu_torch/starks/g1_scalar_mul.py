@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import timing
 from . import bigint, g1_add, jacobian, modular, round_flags, rows
 from .air import eval_eq
 from .layout import G1_ADD_AUX_LAYOUT, Layout, ROUND_FLAGS_LAYOUT
@@ -56,30 +57,35 @@ def _chains(x_limbs, y_limbs, ox_limbs, oy_limbs, s_bits):
     Returns affine doubles d_k = 2^k x (k = 0..256), running sums
     p_k = offset + sum_{i<=k, bit_i} d_i (k = 0..255) and p_{k-1}
     (k = 0..255, p_{-1} = offset), each [steps, n, 16]."""
+    tt = timing.get(None)
     one_limb = torch.zeros_like(x_limbs)
     one_limb[..., 0] = 1
 
     X, Y, Z = x_limbs, y_limbs, one_limb
     dX, dY, dZ = [X], [Y], [Z]
-    for _ in range(N_BITS):
-        X, Y, Z = jacobian.double(X, Y, Z)
-        dX.append(X)
-        dY.append(Y)
-        dZ.append(Z)
-    d_ax, d_ay = jacobian.to_affine(torch.stack(dX), torch.stack(dY), torch.stack(dZ))
+    with tt.scope("double chain"):
+        for _ in range(N_BITS):
+            X, Y, Z = jacobian.double(X, Y, Z)
+            dX.append(X)
+            dY.append(Y)
+            dZ.append(Z)
+    with tt.scope("to_affine"):
+        d_ax, d_ay = jacobian.to_affine(torch.stack(dX), torch.stack(dY), torch.stack(dZ))
 
     X, Y, Z = ox_limbs, oy_limbs, one_limb
     pX, pY, pZ = [], [], []
-    for k in range(N_BITS):
-        Xa, Ya, Za = jacobian.mixed_add(X, Y, Z, d_ax[k], d_ay[k])
-        sel = (s_bits[:, k] == 1)[:, None]
-        X = torch.where(sel, Xa, X)
-        Y = torch.where(sel, Ya, Y)
-        Z = torch.where(sel, Za, Z)
-        pX.append(X)
-        pY.append(Y)
-        pZ.append(Z)
-    p_ax, p_ay = jacobian.to_affine(torch.stack(pX), torch.stack(pY), torch.stack(pZ))
+    with tt.scope("add chain"):
+        for k in range(N_BITS):
+            Xa, Ya, Za = jacobian.mixed_add(X, Y, Z, d_ax[k], d_ay[k])
+            sel = (s_bits[:, k] == 1)[:, None]
+            X = torch.where(sel, Xa, X)
+            Y = torch.where(sel, Ya, Y)
+            Z = torch.where(sel, Za, Z)
+            pX.append(X)
+            pY.append(Y)
+            pZ.append(Z)
+    with tt.scope("to_affine"):
+        p_ax, p_ay = jacobian.to_affine(torch.stack(pX), torch.stack(pY), torch.stack(pZ))
     # p_{k-1}: the offset (affine already) then p_0 .. p_254
     pp_ax = torch.cat([ox_limbs[None], p_ax[:-1]])
     pp_ay = torch.cat([oy_limbs[None], p_ay[:-1]])
@@ -107,26 +113,30 @@ def generate_trace_core(x_limbs, y_limbs, ox_limbs, oy_limbs, s_bits, timestamps
                         min_rows: int = 0):
     """[n,16] x/y/offset limbs, [n,256] bits, [n] ts -> [num_rows, 781]
     int64 rows (range-check columns zero)."""
-    d_ax, d_ay, p_ax, p_ay, pp_ax, pp_ay = _chains(x_limbs, y_limbs, ox_limbs, oy_limbs,
-                                                   s_bits)
+    tt = timing.get(None)
+    with tt.scope("chains"):
+        d_ax, d_ay, p_ax, p_ay, pp_ax, pp_ay = _chains(x_limbs, y_limbs, ox_limbs, oy_limbs,
+                                                       s_bits)
     d_lo_ax, d_lo_ay = d_ax[:N_BITS], d_ay[:N_BITS]
     # add rows: p_{k-1} + d_k; double rows: d_k + d_k — one batched pass
-    cx, cy, aux = g1_add.generate_g1_add(
-        torch.stack([pp_ax, d_lo_ax]), torch.stack([pp_ay, d_lo_ay]),
-        torch.stack([d_lo_ax, d_lo_ax]), torch.stack([d_lo_ay, d_lo_ay]),
-    )
-    even_tail, odd_tail = rows.tails(s_bits, timestamps)
-    add_rows = (
-        [d_lo_ax, d_lo_ay, p_ax, p_ay]  # double, sum
-        + [pp_ax, pp_ay, d_lo_ax, d_lo_ay, cx[0], cy[0]]  # a, b, c
-        + _aux_cols(modular.index_tree(aux, 0)) + even_tail
-    )
-    dbl_rows = (
-        [d_ax[1:], d_ay[1:], p_ax, p_ay]  # double = d_{k+1}, sum = p_k
-        + [d_lo_ax, d_lo_ay, d_lo_ax, d_lo_ay, cx[1], cy[1]]
-        + _aux_cols(modular.index_tree(aux, 1)) + odd_tail
-    )
-    return rows.assemble(add_rows, dbl_rows, min_rows)
+    with tt.scope("witness pass"):
+        cx, cy, aux = g1_add.generate_g1_add(
+            torch.stack([pp_ax, d_lo_ax]), torch.stack([pp_ay, d_lo_ay]),
+            torch.stack([d_lo_ax, d_lo_ax]), torch.stack([d_lo_ay, d_lo_ay]),
+        )
+    with tt.scope("assemble"):
+        even_tail, odd_tail = rows.tails(s_bits, timestamps)
+        add_rows = (
+            [d_lo_ax, d_lo_ay, p_ax, p_ay]  # double, sum
+            + [pp_ax, pp_ay, d_lo_ax, d_lo_ay, cx[0], cy[0]]  # a, b, c
+            + _aux_cols(modular.index_tree(aux, 0)) + even_tail
+        )
+        dbl_rows = (
+            [d_ax[1:], d_ay[1:], p_ax, p_ay]  # double = d_{k+1}, sum = p_k
+            + [d_lo_ax, d_lo_ay, d_lo_ax, d_lo_ay, cx[1], cy[1]]
+            + _aux_cols(modular.index_tree(aux, 1)) + odd_tail
+        )
+        return rows.assemble(add_rows, dbl_rows, min_rows)
 
 
 def add_range_checks(trace: torch.Tensor) -> torch.Tensor:
@@ -139,14 +149,18 @@ def generate_trace(inputs, min_rows: int = 1 << LIMB_BITS,
     """inputs: list of (s, (x, y), (ox, oy), timestamp) python ints ->
     [num_rows, 781] int64 trace on `device`: the card unless the caller
     asks for the CPU (`device="cpu"`); without a card the default raises."""
-    dev = rows.bundle([(p[0], p[1], o[0], o[1]) for _, p, o, _ in inputs], 4,
-                      [(s, t) for s, _, _, t in inputs], device)
-    trace = generate_trace_core(
-        dev[:, :N_LIMBS], dev[:, N_LIMBS : 2 * N_LIMBS],
-        dev[:, 2 * N_LIMBS : 3 * N_LIMBS], dev[:, 3 * N_LIMBS : 4 * N_LIMBS],
-        dev[:, 4 * N_LIMBS : 4 * N_LIMBS + N_BITS], dev[:, -1], min_rows,
-    )
-    return add_range_checks(trace)
+    tt = timing.get(None)
+    with tt.scope("generate_trace"):
+        with tt.scope("inputs"):
+            dev = rows.bundle([(p[0], p[1], o[0], o[1]) for _, p, o, _ in inputs], 4,
+                              [(s, t) for s, _, _, t in inputs], device)
+        trace = generate_trace_core(
+            dev[:, :N_LIMBS], dev[:, N_LIMBS : 2 * N_LIMBS],
+            dev[:, 2 * N_LIMBS : 3 * N_LIMBS], dev[:, 3 * N_LIMBS : 4 * N_LIMBS],
+            dev[:, 4 * N_LIMBS : 4 * N_LIMBS + N_BITS], dev[:, -1], min_rows,
+        )
+        with tt.scope("range checks"):
+            return add_range_checks(trace)
 
 
 # ---------------------------------------------------------------------------
@@ -265,16 +279,17 @@ def generate_ctl_values(inputs):
     from .limbs import h_int_to_limbs
 
     ins, outs = [], []
-    for s, x, offset, t in inputs:
-        row = (
-            h_int_to_limbs(x[0], 16)
-            + h_int_to_limbs(x[1], 16)
-            + h_int_to_limbs(offset[0], 16)
-            + h_int_to_limbs(offset[1], 16)
-            + h_int_to_limbs(s, 16)
-            + [t]
-        )
-        ins.append(row)
-        out_pt = oracle.g1_add(oracle.g1_mul(x, s), offset)
-        outs.append(h_int_to_limbs(out_pt[0], 16) + h_int_to_limbs(out_pt[1], 16) + [t])
+    with timing.get(None).scope("generate_ctl_values"):
+        for s, x, offset, t in inputs:
+            row = (
+                h_int_to_limbs(x[0], 16)
+                + h_int_to_limbs(x[1], 16)
+                + h_int_to_limbs(offset[0], 16)
+                + h_int_to_limbs(offset[1], 16)
+                + h_int_to_limbs(s, 16)
+                + [t]
+            )
+            ins.append(row)
+            out_pt = oracle.g1_add(oracle.g1_mul(x, s), offset)
+            outs.append(h_int_to_limbs(out_pt[0], 16) + h_int_to_limbs(out_pt[1], 16) + [t])
     return {0: ins, 1: outs}

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import timing
 from . import bigint, fq2_alg, g2_add, modular, round_flags, rows
 from .air import eval_eq
 from .layout import Layout, ROUND_FLAGS_LAYOUT
@@ -55,32 +56,37 @@ def _chains(x, y, ox, oy, s_bits):
     Returns affine doubles d_k = 2^k x (k = 0..256), running sums
     p_k = offset + sum_{i<=k, bit_i} d_i (k = 0..255) and p_{k-1}
     (k = 0..255, p_{-1} = offset), each [2, steps, n, 16]."""
+    tt = timing.get(None)
     one = torch.zeros_like(x)
     one[0, ..., 0] = 1
 
     X, Y, Z = x, y, one
     dX, dY, dZ = [X], [Y], [Z]
-    for _ in range(N_BITS):
-        X, Y, Z = fq2_alg.jac_double(X, Y, Z)
-        dX.append(X)
-        dY.append(Y)
-        dZ.append(Z)
-    d_ax, d_ay = fq2_alg.jac_to_affine(torch.stack(dX, 1), torch.stack(dY, 1),
-                                       torch.stack(dZ, 1))
+    with tt.scope("double chain"):
+        for _ in range(N_BITS):
+            X, Y, Z = fq2_alg.jac_double(X, Y, Z)
+            dX.append(X)
+            dY.append(Y)
+            dZ.append(Z)
+    with tt.scope("to_affine"):
+        d_ax, d_ay = fq2_alg.jac_to_affine(torch.stack(dX, 1), torch.stack(dY, 1),
+                                           torch.stack(dZ, 1))
 
     X, Y, Z = ox, oy, one
     pX, pY, pZ = [], [], []
-    for k in range(N_BITS):
-        Xa, Ya, Za = fq2_alg.jac_mixed_add(X, Y, Z, d_ax[:, k], d_ay[:, k])
-        sel = (s_bits[:, k] == 1)[:, None]
-        X = torch.where(sel, Xa, X)
-        Y = torch.where(sel, Ya, Y)
-        Z = torch.where(sel, Za, Z)
-        pX.append(X)
-        pY.append(Y)
-        pZ.append(Z)
-    p_ax, p_ay = fq2_alg.jac_to_affine(torch.stack(pX, 1), torch.stack(pY, 1),
-                                       torch.stack(pZ, 1))
+    with tt.scope("add chain"):
+        for k in range(N_BITS):
+            Xa, Ya, Za = fq2_alg.jac_mixed_add(X, Y, Z, d_ax[:, k], d_ay[:, k])
+            sel = (s_bits[:, k] == 1)[:, None]
+            X = torch.where(sel, Xa, X)
+            Y = torch.where(sel, Ya, Y)
+            Z = torch.where(sel, Za, Z)
+            pX.append(X)
+            pY.append(Y)
+            pZ.append(Z)
+    with tt.scope("to_affine"):
+        p_ax, p_ay = fq2_alg.jac_to_affine(torch.stack(pX, 1), torch.stack(pY, 1),
+                                           torch.stack(pZ, 1))
     # p_{k-1}: the offset (affine already) then p_0 .. p_254
     pp_ax = torch.cat([ox[:, None], p_ax[:, :-1]], dim=1)
     pp_ay = torch.cat([oy[:, None], p_ay[:, :-1]], dim=1)
@@ -120,25 +126,29 @@ def _pt(x, y):
 def generate_trace_core(x, y, ox, oy, s_bits, timestamps, min_rows: int = 0):
     """[2, n, 16] Fq2 coordinates of x and the offset, [n, 256] bits, [n] ts
     -> [num_rows, 1295] int64 rows (range-check columns zero)."""
-    d_ax, d_ay, p_ax, p_ay, pp_ax, pp_ay = _chains(x, y, ox, oy, s_bits)
+    tt = timing.get(None)
+    with tt.scope("chains"):
+        d_ax, d_ay, p_ax, p_ay, pp_ax, pp_ay = _chains(x, y, ox, oy, s_bits)
     d_lo_ax, d_lo_ay = d_ax[:, :N_BITS], d_ay[:, :N_BITS]
     # add rows: p_{k-1} + d_k; double rows: d_k + d_k — one batched pass
-    cx, cy, aux = g2_add.generate_g2_add(
-        torch.stack([pp_ax, d_lo_ax], 1), torch.stack([pp_ay, d_lo_ay], 1),
-        torch.stack([d_lo_ax, d_lo_ax], 1), torch.stack([d_lo_ay, d_lo_ay], 1),
-    )
-    even_tail, odd_tail = rows.tails(s_bits, timestamps)
-    add_rows = (
-        _pt(d_lo_ax, d_lo_ay) + _pt(p_ax, p_ay)  # double, sum
-        + _pt(pp_ax, pp_ay) + _pt(d_lo_ax, d_lo_ay) + _pt(cx[:, 0], cy[:, 0])  # a, b, c
-        + _aux_cols(modular.index_tree(aux, 0)) + even_tail
-    )
-    dbl_rows = (
-        _pt(d_ax[:, 1:], d_ay[:, 1:]) + _pt(p_ax, p_ay)  # double = d_{k+1}, sum = p_k
-        + _pt(d_lo_ax, d_lo_ay) + _pt(d_lo_ax, d_lo_ay) + _pt(cx[:, 1], cy[:, 1])
-        + _aux_cols(modular.index_tree(aux, 1)) + odd_tail
-    )
-    return rows.assemble(add_rows, dbl_rows, min_rows)
+    with tt.scope("witness pass"):
+        cx, cy, aux = g2_add.generate_g2_add(
+            torch.stack([pp_ax, d_lo_ax], 1), torch.stack([pp_ay, d_lo_ay], 1),
+            torch.stack([d_lo_ax, d_lo_ax], 1), torch.stack([d_lo_ay, d_lo_ay], 1),
+        )
+    with tt.scope("assemble"):
+        even_tail, odd_tail = rows.tails(s_bits, timestamps)
+        add_rows = (
+            _pt(d_lo_ax, d_lo_ay) + _pt(p_ax, p_ay)  # double, sum
+            + _pt(pp_ax, pp_ay) + _pt(d_lo_ax, d_lo_ay) + _pt(cx[:, 0], cy[:, 0])  # a, b, c
+            + _aux_cols(modular.index_tree(aux, 0)) + even_tail
+        )
+        dbl_rows = (
+            _pt(d_ax[:, 1:], d_ay[:, 1:]) + _pt(p_ax, p_ay)  # double = d_{k+1}, sum = p_k
+            + _pt(d_lo_ax, d_lo_ay) + _pt(d_lo_ax, d_lo_ay) + _pt(cx[:, 1], cy[:, 1])
+            + _aux_cols(modular.index_tree(aux, 1)) + odd_tail
+        )
+        return rows.assemble(add_rows, dbl_rows, min_rows)
 
 
 def add_range_checks(trace: torch.Tensor) -> torch.Tensor:
@@ -152,15 +162,19 @@ def generate_trace(inputs, min_rows: int = 1 << LIMB_BITS,
     timestamp) python ints -> [num_rows, 1295] int64 trace on `device`: the
     card unless the caller asks for the CPU (`device="cpu"`); without a card
     the default raises."""
-    dev = rows.bundle(
-        [(p[0][0], p[0][1], p[1][0], p[1][1], o[0][0], o[0][1], o[1][0], o[1][1])
-         for _, p, o, _ in inputs],
-        8, [(s, t) for s, _, _, t in inputs], device)
-    f2 = [dev[:, 2 * j * N_LIMBS : (2 * j + 2) * N_LIMBS].reshape(-1, 2, N_LIMBS).transpose(0, 1)
-          for j in range(4)]  # x, y, ox, oy as [2, n, 16]
-    trace = generate_trace_core(*f2, dev[:, 8 * N_LIMBS : 8 * N_LIMBS + N_BITS], dev[:, -1],
-                                min_rows)
-    return add_range_checks(trace)
+    tt = timing.get(None)
+    with tt.scope("generate_trace"):
+        with tt.scope("inputs"):
+            dev = rows.bundle(
+                [(p[0][0], p[0][1], p[1][0], p[1][1], o[0][0], o[0][1], o[1][0], o[1][1])
+                 for _, p, o, _ in inputs],
+                8, [(s, t) for s, _, _, t in inputs], device)
+        f2 = [dev[:, 2 * j * N_LIMBS : (2 * j + 2) * N_LIMBS].reshape(-1, 2, N_LIMBS)
+              .transpose(0, 1) for j in range(4)]  # x, y, ox, oy as [2, n, 16]
+        trace = generate_trace_core(*f2, dev[:, 8 * N_LIMBS : 8 * N_LIMBS + N_BITS],
+                                    dev[:, -1], min_rows)
+        with tt.scope("range checks"):
+            return add_range_checks(trace)
 
 
 # ---------------------------------------------------------------------------
@@ -283,8 +297,9 @@ def generate_ctl_values(inputs):
         )
 
     ins, outs = [], []
-    for s, x, offset, t in inputs:
-        ins.append(pt_limbs(x) + pt_limbs(offset) + h_int_to_limbs(s, 16) + [t])
-        out_pt = oracle.g2_add(oracle.g2_mul(x, s), offset)
-        outs.append(pt_limbs(out_pt) + [t])
+    with timing.get(None).scope("generate_ctl_values"):
+        for s, x, offset, t in inputs:
+            ins.append(pt_limbs(x) + pt_limbs(offset) + h_int_to_limbs(s, 16) + [t])
+            out_pt = oracle.g2_add(oracle.g2_mul(x, s), offset)
+            outs.append(pt_limbs(out_pt) + [t])
     return {0: ins, 1: outs}

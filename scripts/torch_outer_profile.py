@@ -83,7 +83,7 @@ def main() -> int:
                                          "n_chunks": state["calls"], "wall_s": wall,
                                          "device_busy_s": busy_s, "idle_share": 1 - busy_s / wall,
                                          "kernels": len(kernels)},
-                      "stages_s": {n: s for d, n, s in tt.records if d == 0}}))
+                      "stages_s": tt.stages()}))
     return 0
 
 

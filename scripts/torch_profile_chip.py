@@ -20,7 +20,7 @@ The port's counterpart of scripts/profile_chip.py.  Two parts:
 
 (b) Three proofs of one trace of each machine (g1, fq_exp, g2; 128 ops,
     DEFAULT_CONFIG, device Fiat–Shamir): a warm-up, one under the
-    synchronising timer, and one with torch.profiler recording only the
+    TimingTree, and one with torch.profiler recording only the
     aux, openings and FRI-oracle stages (a whole proof under the profiler
     runs past 900 s, trace generation alone launching millions of
     kernels).  For each slice: its synchronised wall in the timed proof (no

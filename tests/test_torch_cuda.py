@@ -534,3 +534,134 @@ def test_bench_outer_gate_path_on_card(card):
     assert res["metric"] == "composed_outer_prove_steady_s" and res["value"] == res["median_s"]
     assert res["stages"]["outer_rows_log2"] == 20 and res["n"] == 1
     assert marks[-1] == "corrupted public input rejected"
+
+
+def _fq_exp_inputs(seed: int, n: int = 2):
+    from plonky2_bn254_tpu_torch.bn254 import oracle
+
+    rng = np.random.default_rng(seed)
+    return [(int(rng.integers(1, 1 << 62)) << 150 | t, oracle.random_fq(rng), t) for t in range(n)]
+
+
+def _traced(run):
+    """run() under torch.profiler (CPU and CUDA) and an enabled TimingTree:
+    (its spans, the profiler's events)."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from plonky2_bn254_tpu_torch.utils import timing
+
+    gc.collect()
+    timing.reset()
+    tt = timing.TimingTree(enabled=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("warm-up"):  # the profiler's first event sets it up
+            pass
+        run(tt)
+        torch.cuda.synchronize()
+    spans = timing.spans()
+    del tt
+    timing.reset()
+    return spans, list(prof.profiler.kineto_results.events())
+
+
+def test_spans_on_the_profilers_clock_on_card(card):
+    """An FqExp prove under the profiler: every program span is a `scope:`
+    annotation within 1 ms of its recorded host times, and its device
+    close is no earlier than the end of the last device operation
+    launched inside it (within the same 1 ms)."""
+    from collections import defaultdict
+
+    from plonky2_bn254_tpu_torch.prover import prove as prove_mod
+    from plonky2_bn254_tpu_torch.prover.config import TEST_CONFIG
+    from plonky2_bn254_tpu_torch.starks import fq_exp
+    from plonky2_bn254_tpu_torch.starks.table import fq_exp_stark
+    from plonky2_bn254_tpu_torch.utils.timing import ANNOTATION
+
+    inputs = _fq_exp_inputs(21)
+    trace = fq_exp.generate_trace(inputs, min_rows=2048)
+    ctl = fq_exp.generate_ctl_values(inputs)
+    spans, events = _traced(lambda tt: prove_mod.prove(fq_exp_stark(), trace, ctl, TEST_CONFIG,
+                                                       timing=tt))
+    assert spans[-1].name == "prove" and len(spans) > 10
+    dev = torch.autograd.DeviceType.CUDA
+    notes = defaultdict(list)
+    for e in events:
+        if e.device_type() != dev and e.name().startswith(ANNOTATION):
+            notes[e.name()[len(ANNOTATION):]].append(e)
+    launches = {e.correlation_id(): e.start_ns() for e in events
+                if e.device_type() != dev and e.correlation_id()}
+    ops = [(launches[e.correlation_id()], e.start_ns() + e.duration_ns()) for e in events
+           if e.device_type() == dev and not e.name().startswith(ANNOTATION)
+           and e.correlation_id() in launches]
+    assert ops
+    by_name = defaultdict(list)
+    for s in spans:
+        by_name[s.name].append(s)
+    worst_clock = worst_close = 0
+    worst_name = None
+    for name, group in by_name.items():
+        marks = sorted(notes[name], key=lambda e: e.start_ns())
+        assert len(marks) == len(group), name
+        for s, e in zip(sorted(group, key=lambda s: s.host_open_ns), marks):
+            apart = max(abs(e.start_ns() - s.host_open_ns),
+                        abs(e.start_ns() + e.duration_ns() - s.host_close_ns))
+            if apart > worst_clock:
+                worst_clock, worst_name = apart, name
+            ends = [end for launch, end in ops if s.host_open_ns <= launch <= s.host_close_ns]
+            if ends:
+                worst_close = max(worst_close, max(ends) - s.device_close_ns)
+    print(f"\nspans {len(spans)}, device ops {len(ops)}: annotation against span host times "
+          f"at most {worst_clock / 1e3:.1f} us apart ({worst_name}); last operation's end past the device "
+          f"close by at most {worst_close / 1e3:.1f} us")
+    assert worst_clock < 1_000_000
+    assert worst_close < 1_000_000
+
+
+def test_trace_generation_allocations_repeat_across_seeds(card):
+    """The allocation requests of FqExp's `generate_trace` depend on the
+    shapes alone: two seeds, one count."""
+    import gc
+
+    from plonky2_bn254_tpu_torch.starks import fq_exp
+    from plonky2_bn254_tpu_torch.utils import timing
+
+    counts = []
+    for seed in (31, 32):
+        gc.collect()
+        timing.reset()
+        tt = timing.TimingTree(enabled=True)
+        fq_exp.generate_trace(_fq_exp_inputs(seed), min_rows=2048)
+        counts.append([s.allocs for s in timing.spans() if s.parent is None])
+        del tt
+    timing.reset()
+    print(f"\ngenerate_trace allocation requests, seeds 31 and 32: {counts}")
+    assert counts[0] == counts[1] and counts[0][0] > 0
+
+
+@pytest.mark.parametrize("step", ["double", "mixed_add"])
+def test_g1_step_allocations_against_kernel_count(card, step):
+    """One G1 chain step on 128 ops: the span's allocation requests beside
+    the kernels the profiler counts in it."""
+    from plonky2_bn254_tpu_torch.starks import jacobian
+
+    g = torch.Generator().manual_seed(5)
+    limbs = [torch.randint(0, 1 << 16, (128, 16), generator=g, dtype=torch.int64).to(card)
+             for _ in range(5)]
+    run = {"double": lambda: jacobian.double(*limbs[:3]),
+           "mixed_add": lambda: jacobian.mixed_add(*limbs)}[step]
+    run()  # first-call set-up outside the count
+    torch.cuda.synchronize()
+
+    def traced(tt):
+        with tt.scope(step):
+            run()
+
+    spans, events = _traced(traced)
+    (span,) = spans
+    kernels = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not e.name().startswith(("scope:", "warm-up", "Memcpy", "Memset"))]
+    print(f"\nG1 {step} step: {span.allocs} allocation requests, {len(kernels)} kernels, "
+          f"ratio {span.allocs / len(kernels):.3f}")
+    assert len(kernels) > 1000 and 0.5 < span.allocs / len(kernels) < 2.0

@@ -177,19 +177,33 @@ def test_parallel_ntt_tables_equal_original(n1_log, n2_log):
                                       orig._mid_twiddle(n_log, d_log, inverse))
 
 
-def test_timing_copy_records_scopes():
+def test_timing_copy_records_scopes(monkeypatch):
+    """Nested scopes record with their depths; `get(None)` is a tree that
+    records nothing while tracing is off, and the process's tree, which
+    records into the span store, while an enabled tree is alive."""
+    import gc
+
+    from plonky2_bn254_tpu_torch.utils import timing
     from plonky2_bn254_tpu_torch.utils.timing import TimingTree, get
 
-    tt = TimingTree(enabled=True)
-    with tt.scope("outer"):
-        with tt.scope("inner"):
-            pass
-    assert [(d, n) for d, n, _ in tt.records] == [(1, "inner"), (0, "outer")]
-    assert tt.total("inner") >= 0.0
+    monkeypatch.setattr(timing, "_ALWAYS", False)
+    gc.collect()
+    timing.reset()
     off = get(None)
     with off.scope("x"):
         pass
-    assert off.records == []
+    assert off.records == [] and timing.spans() == []
+    tt = TimingTree(enabled=True)
+    with tt.scope("outer"):
+        with tt.scope("inner"):
+            with get(None).scope("process"):
+                pass
+    assert [(d, n) for d, n, _ in tt.records] == [(1, "inner"), (0, "outer")]
+    assert tt.total("inner") >= 0.0
+    assert get(None) is not off
+    assert [(d, n) for d, n, _ in get(None).records] == [(0, "process")]
+    assert [s.name for s in timing.spans()] == ["process", "inner", "outer"]
+    timing.reset()
 
 
 def test_wrappers_refuse_other_devices():
