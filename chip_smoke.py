@@ -24,7 +24,7 @@ Phases (any failure exits non-zero before the result line):
      transcript on the device (the default on the card), on the host, and
      on the device again (the first proof of a path meets cold tables),
      each with the launch counts set to 0 just before and read just after
-     (every kernel launched; device FS through K2t, at most 16 transitions,
+     (every kernel launched, K5 once a proof; device FS through K2t, at most 16 transitions,
      and K2 never at [1, 12]; host FS no K2t), its synchronised
      wall and its synchronising CUDA operations (torch.cuda sync debug
      mode) by site; the proofs equal field by field; the device-FS
@@ -90,7 +90,11 @@ Phases (any failure exits non-zero before the result line):
      squeezes) against its plain version run in lockstep over all keys on
      the CPU copy of the same inputs (its permutations run one after
      another, ~60 ms each on the card), timed beside its latency bound and,
-     at its most launched key, its plain version;
+     at its most launched key, its plain version; K5 (the quotient's
+     constraint tape at every coset point) at every key whose machine the
+     run still holds and at 1000 points, against the tape run in plain
+     torch, timed beside the bound of its tape's operations and the bytes
+     it reads (bounds.quotient_work);
   9. per path, the stage times and wall of one proof under the
      span timer (TimingTree) and its peak device memory; on the machine paths
      its stages beside the host-FS proof's of phase 5.
@@ -157,7 +161,12 @@ KERNELS = {
            "plonky2_bn254_tpu/field/ntt_pallas.py:170"),
     "K4": ("coset_lde", "plonky2_bn254_tpu_torch/csrc/ntt.cu",
            "plonky2_bn254_tpu/field/ntt_pallas.py:240"),
+    # no pallas_call: the reference evaluates the quotient's constraints in
+    # XLA; the port's eager GL-ring chunks, now one launch on a tape
+    "K5": ("quotient_values", "plonky2_bn254_tpu_torch/csrc/quotient.cu",
+           "plonky2_bn254_tpu/prover/prove.py (quotient stage)"),
 }
+K5_ODD_N = 1000  # coset points beside each path key: not a multiple of a block
 
 
 def log(msg: str) -> None:
@@ -449,8 +458,67 @@ def compare_kernels(device, calls_by_path: dict, sms: int, clock_mhz: float) -> 
     with multiprocessing.get_context("spawn").Pool(1) as pool:
         k2t_check = start_k2t(device, calls_by_path, sms, clock_mhz, pool)
         results = compare_k1_to_k4(device, calls_by_path, sms, clock_mhz)
+        results["K5"] = compare_k5(device, calls_by_path, sms, clock_mhz)
         results["K2t"] = k2t_check()
     return results
+
+
+def compare_k5(device, calls_by_path: dict, sms: int, clock_mhz: float) -> dict:
+    """K5 against its tape run in plain torch on the card, on random LDE
+    values, challenges and selectors, at every key a path launched it with
+    whose machine this process still holds (the tapes it recorded; K5's key
+    is (width, tape length, slots, points)) and at K5_ODD_N points for each
+    of those tapes.  Timed (mean of 20, CUDA events) beside the bound of
+    bounds.quotient_work; the plain version once at the first and last
+    key."""
+    from plonky2_bn254_tpu_torch import bounds
+    from plonky2_bn254_tpu_torch.prover import quotient_cuda
+    from plonky2_bn254_tpu_torch.prover import tape as tape_mod
+
+    rng = np.random.default_rng(SEED)
+    calls = Counter()
+    for per_path in calls_by_path.values():
+        calls.update(per_path["K5"])
+    tapes = {(t.width, len(t.prog), t.n_slots): t
+             for ref, t in tape_mod._TAPES.values() if ref() is not None}
+
+    def bound_of(tape, n):
+        return bounds.bound_ms(*bounds.quotient_work(tape, n), sms, clock_mhz)
+
+    timed = sorted((k for k in calls if k[:3] in tapes),
+                   key=lambda k: bound_of(tapes[k[:3]], k[3])[0], reverse=True)
+    odd = sorted({k[:3] + (K5_ODD_N,) for k in timed})
+    err, rows = 0, []
+    for i, key in enumerate(timed + odd):
+        tape, n = tapes[key[:3]], key[3]
+        t, a = rand_residues(rng, (tape.width, n), device), rand_residues(rng, (tape.aux_width, n), device)
+        args = (tape, t, t, a, a, rand_residues(rng, (4, n), device),
+                rand_residues(rng, (tape.n_inputs,), device))
+        kern = lambda: quotient_cuda.quotient_values(*args, nxt_shift=2)  # noqa: E731
+        plain = lambda: quotient_cuda.quotient_values_plain(*args, nxt_shift=2)  # noqa: E731
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, want))
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 {key}: {int((got != want).sum())} values differ from the "
+                                 f"plain tape")
+        if i < len(timed):
+            ms = cuda_ms(kern, reps=20)
+            plain_ms = (cuda_ms(plain, reps=1, warm_up=False)
+                        if i in (0, len(timed) - 1) else None)
+            bound, bound_by = bound_of(tape, n)
+            per_path = {p: calls_by_path[p]["K5"].get(key, 0) for p in calls_by_path}
+            rows.append({"key": list(key), "launches": per_path, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound, "bound_by": bound_by, "share": bound / ms,
+                         "tape_ops": tape.n_ops})
+            log(f"  K5 {key} x{per_path}: kernel {ms:.3f} ms, bound {bound:.4f} ms "
+                f"({bound_by}), share {bound / ms:.3f}"
+                + (f", plain {plain_ms:.3f} ms" if plain_ms is not None else ""))
+        del t, a, args, got, want
+    log(f"  K5: equal to plain at {len(timed)} path and {len(odd)} odd shapes, "
+        f"max_abs_err {err}; {len(calls) - len(timed)} launched keys without a held machine")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "timed": rows}
 
 
 def compare_k1_to_k4(device, calls_by_path: dict, sms: int, clock_mhz: float) -> dict:
@@ -604,6 +672,9 @@ def flow_run(path: Path, trace, device_fs: bool):
     if k2_single or (launches["K2t"] > MAX_TRANSITIONS if device_fs else launches["K2t"]):
         raise AssertionError(f"path {path.name} ({flow}): K2 at [1, 12] {k2_single} times, "
                              f"K2t {launches['K2t']} times")
+    if launches["K5"] != 1:
+        raise AssertionError(f"path {path.name} ({flow}): K5 launched {launches['K5']} times, "
+                             f"not once")
     return proof, {"wall_s": wall, "syncs": sum(sites.values()), "sync_sites": dict(sites),
                    "launches": launches, "k2_single_launches": k2_single,
                    "k2t_launches": launches["K2t"], "peak_gb": peak, "calls": calls}

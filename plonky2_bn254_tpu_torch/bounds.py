@@ -219,6 +219,22 @@ def coset_lde_work(w: int, n: int, rate_bits: int) -> tuple:
     return w * ops, 8 * w * n + 8 * w * (n << rate_bits)
 
 
+def quotient_work(tape, n: int) -> tuple:
+    """(ops, bytes) of K5 running `tape` (prover/tape.py) at n coset points.
+    Ops: the tape's Goldilocks operations at every point, each at its
+    `OP_COST` (the uniform program runs once, not counted).  Bytes: each
+    LDE word read once (the next row's words are the same words, `shift`
+    points on), the four selector rows, and the outputs written."""
+    from .prover import tape as tape_mod
+
+    op = tape.prog[:, 0]
+    cost = {tape_mod.ADD: OP_COST["add"], tape_mod.SUB: OP_COST["sub"],
+            tape_mod.MUL: OP_COST["mul"]}
+    per_point = sum(int((op == k).sum()) * c for k, c in cost.items())
+    words = tape.width + tape.aux_width + 4 + tape.n_out
+    return n * per_point, 8 * n * words
+
+
 def bound_ms(ops: int, nbytes: int, sms: int, clock_mhz: float, chain_cycles: int = 0) -> tuple:
     """(bound in ms, "operations" or "bytes").  `chain_cycles`: the critical
     path of operations that depend on one another (K1, K2, K2t), which

@@ -26,7 +26,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("poseidon.cu", "ntt.cu")
+SOURCES = ("poseidon.cu", "ntt.cu", "quotient.cu")
 HEADERS = ("goldilocks.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -37,8 +37,9 @@ _COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared")
 # K1 Poseidon leaf sponge, K1m Merkle levels (K1's Merkle use: every level
 # below the regime threshold in one launch), K2 raw permutation, K2t one
 # transcript transition (absorb and squeeze on one sponge state), K3
-# NTT/iNTT, K4 coset LDE.
-KERNEL_IDS = ("K1", "K1m", "K2", "K2t", "K3", "K4")
+# NTT/iNTT, K4 coset LDE, K5 the quotient's constraints (a machine's tape
+# at every coset point).
+KERNEL_IDS = ("K1", "K1m", "K2", "K2t", "K3", "K4", "K5")
 LAUNCHES: Counter = Counter({k: 0 for k in KERNEL_IDS})
 # kernel id -> Counter of the keys its launches were made with (see the wrappers)
 CALLS: dict = {k: Counter() for k in KERNEL_IDS}
@@ -58,6 +59,9 @@ _SIGNATURES = {
     "p2_ntt_rows": (_VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT, _INT, _U64, _VP),
     "p2_ntt_columns": (_VP, _VP, _VP, _VP, _VP, _I64, _INT, _INT, _INT, _INT, _VP),
     "p2_ntt_rows_t": (_VP, _VP, _VP, _I64, _INT, _INT, _INT, _VP),
+    "p2_quotient_max_slots": (),
+    "p2_quotient_tape": (_VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _INT,
+                         _VP, _VP, _I64, _VP, _VP, _I64, _VP, _VP, _I64, _VP),
 }
 
 _RESTYPES = {"p2_tree_counters": _I64}  # the others return a CUDA error code

@@ -9,13 +9,14 @@ stage code and give the same proof:
 
   S1 commit(trace)                 -> coeffs/LDE/Merkle levels/cap
   S2 aux(trace, beta, gamma)       -> LogUp helpers+Z, CTL Z  -> commit
-  S3 quotient(ldes, challenges)    -> alpha-combined quotient chunks -> commit
+  S3 quotient(ldes, challenges)    -> alpha-combined constraints / Z_H -> commit
   S4 openings(coeffs, zeta)        -> f_i(zeta), f_i(zeta*g)
   S5 fri(ldes, openings, alpha)    -> reduced oracle F + fold layers + trees
 
 Commits go through the hand kernels: iNTT (K3), coset LDE (K4) and the
-Merkle sponge (K1); the FRI grind uses K2, and each transition of the
-device transcript is one K2t launch.
+Merkle sponge (K1); the quotient's constraints are one K5 launch a proof
+(the machine's tape at every coset point); the FRI grind uses K2, and each
+transition of the device transcript is one K2t launch.
 
 On a mesh (`prove(..., mesh=...)`, `parallel/mesh.py`) every rank runs
 either flow on its contiguous block of the rows: the commits take the mesh
@@ -39,6 +40,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from .. import kernels
 from ..field import goldilocks as gl
 from ..field import ntt, ntt_cuda
 from ..field.extension import Ext, GLExt
@@ -51,13 +53,15 @@ from ..utils import timing as timing_mod
 from . import constraints as cons
 from . import device_challenger as dcm
 from . import fri as fri_mod
+from . import quotient_cuda
+from . import tape as tape_mod
 from .challenger import Challenger
 from .config import StarkConfig
 from .merkle import ShardedTree, device_tree_levels, gather_paths_dev, sharded_tree
 from .poly_batch import bit_rev_perm_dev, leaf_rows, sharded_leaf_rows
 
-# Rows of the LDE coset per quotient chunk: bounds the plain-torch
-# temporaries of the constraint evaluation.
+# Rows of the LDE coset per quotient chunk on the CPU: bounds the plain-torch
+# temporaries of the eager constraint evaluation.
 QUOTIENT_CHUNK = 1 << 14
 
 
@@ -142,6 +146,17 @@ def _domain_arrays(n_log: int, rate_bits: int, device: torch.device):
     l_first = gl.mul(z_h, gl.batch_inv(gl.mul_const(gl.sub(xs, 1), n)))
     l_last = gl.mul(gl.mul_const(z_h, g_last * n_inv % gl.P), gl.batch_inv(z_last))
     return xs, inv_z_h, z_last, l_first, l_last
+
+
+@functools.lru_cache(maxsize=None)
+def _selectors(n_log: int, rate_bits: int, device: torch.device, lo: int, size: int):
+    """[4, size]: z_last, l_first, l_last and 1/Z_H at the coset points
+    [lo, lo + size), the rows `tape.SEL` names."""
+    _, inv_z_h, z_last, l_first, l_last = _domain_arrays(n_log, rate_bits, device)
+    rows = [None] * 4
+    rows[tape_mod.Z_LAST], rows[tape_mod.L_FIRST] = z_last, l_first
+    rows[tape_mod.L_LAST], rows[tape_mod.INV_ZH] = l_last, inv_z_h
+    return torch.stack(rows)[:, lo : lo + size].contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -273,61 +288,77 @@ def _make_aux(stark: Stark, mesh: Mesh = None):
     return aux_core
 
 
+def _eager_quotient_values(stark: Stark, t_lde, t_nxt, a_lde, a_nxt, sel, alphas, challenges,
+                           ctl_totals, weight_arrays) -> torch.Tensor:
+    """[num_challenges, n]: the alpha-combined constraints over Z_H at the
+    n points of `t_lde` / `a_lde` (their next rows aligned in `t_nxt` /
+    `a_nxt`; `sel` as `_selectors`), by the GL ring over chunks of
+    QUOTIENT_CHUNK points: the CPU's path, and K5's reference."""
+    if isinstance(alphas[0], torch.Tensor):
+        alpha_pows = torch.stack([dcm.powers_vec(a, 513) for a in alphas])
+    else:
+        alpha_pows = tensor_from_u64(np.stack([gl.powers(a, 513) for a in alphas]),
+                                     t_lde.device)
+    ctl_static_cols = tuple(
+        tuple(c for c, _ in ctl.flat_weights(1, gl.P)) for ctl in stark.ctls
+    )
+    zl, lf, ll, inv_z_h = (sel[k] for k in (tape_mod.Z_LAST, tape_mod.L_FIRST,
+                                            tape_mod.L_LAST, tape_mod.INV_ZH))
+    n = t_lde.shape[1]
+
+    def chunk_eval(lo):
+        sl = slice(lo, lo + QUOTIENT_CHUNK)
+        ring = GLRing((min(QUOTIENT_CHUNK, n - lo),), t_lde.device)
+        consumer = ConstraintConsumer(
+            ring, [ring.const(a) for a in alphas], GL(zl[sl]), GL(lf[sl]), GL(ll[sl]),
+            alpha_pows=alpha_pows,
+        )
+        cons.eval_all_constraints(
+            consumer, ring, stark, [GL(x[sl]) for x in t_lde], [GL(x[sl]) for x in t_nxt],
+            [GL(x[sl]) for x in a_lde], [GL(x[sl]) for x in a_nxt], challenges, ctl_totals,
+            ctl_weight_specs=(ctl_static_cols, weight_arrays),
+        )
+        return torch.stack([acc.v for acc in consumer.accs])
+
+    accs = torch.cat([chunk_eval(lo) for lo in range(0, n, QUOTIENT_CHUNK)], dim=1)
+    return gl.mul(accs, inv_z_h[None])
+
+
 def _make_quotient(stark: Stark, n_log: int, config: StarkConfig, mesh: Mesh = None):
-    """Quotient evaluation in LDE-point chunks, then Z_H division, iNTT and
-    the degree split.  On a mesh the LDEs are this rank's blocks: the next
-    row crosses the block edge (`_next_rows`), the iNTT is the mesh one, and
-    the degree split reshards N-blocks to n-blocks (`_split_degree`)."""
+    """The quotient's values on this device's block of the LDE coset, then
+    the iNTT and the degree split.  On the card one K5 launch evaluates
+    every constraint at every point of the block (`quotient_cuda`, on the
+    stark's tape); on the CPU the GL ring evaluates them eagerly
+    (`_eager_quotient_values`).  On a mesh the LDEs are this rank's
+    blocks: the next row crosses the block edge (`_next_rows`), the iNTT is
+    the mesh one, and the degree split reshards N-blocks to n-blocks
+    (`_split_degree`)."""
     n = 1 << n_log
     rate = config.rate_bits
     N = n << rate
     step = 1 << rate
     D = 1 if mesh is None else mesh.size
     lo_block = 0 if mesh is None else mesh.rank * (N // D)
-    C = min(N // D, QUOTIENT_CHUNK)
     shift_inv_pows_np = ntt._coset_powers(N, gl.h_inv(gl.MULTIPLICATIVE_GROUP_GENERATOR))
-    ctl_static_cols = tuple(
-        tuple(c for c, _ in ctl.flat_weights(1, gl.P)) for ctl in stark.ctls
-    )
 
-    def chunk_eval(t_loc, t_nxt, a_loc, a_nxt, zl, lf, ll,
-                   alphas, alpha_pows, challenges, ctl_totals, weight_arrays):
-        ring = GLRing((t_loc.shape[1],), t_loc.device)
-        local = [GL(t_loc[j]) for j in range(t_loc.shape[0])]
-        next_ = [GL(t_nxt[j]) for j in range(t_nxt.shape[0])]
-        aux_local = [GL(a_loc[j]) for j in range(a_loc.shape[0])]
-        aux_next = [GL(a_nxt[j]) for j in range(a_nxt.shape[0])]
-        consumer = ConstraintConsumer(
-            ring, [ring.const(a) for a in alphas], GL(zl), GL(lf), GL(ll),
-            alpha_pows=alpha_pows,
-        )
-        cons.eval_all_constraints(
-            consumer, ring, stark, local, next_, aux_local, aux_next,
-            challenges, ctl_totals,
-            ctl_weight_specs=(ctl_static_cols, weight_arrays),
-        )
-        return torch.stack([acc.v for acc in consumer.accs])
-
-    def quotient_core(t_lde, a_lde, alphas, alpha_pows, challenges, ctl_totals,
-                      weight_arrays):
+    def quotient_core(t_lde, a_lde, alphas, challenges, ctl_totals, weight_arrays):
         dev = t_lde.device
-        block = slice(lo_block, lo_block + N // D)
-        _, inv_z_h, z_last, l_first, l_last = (a[block] for a in _domain_arrays(n_log, rate, dev))
-        t_nxt = _next_rows(t_lde, step, mesh)
-        a_nxt = _next_rows(a_lde, step, mesh)
-        acc_parts = []
-        for lo in range(0, N // D, C):
-            sl = slice(lo, lo + C)
-            acc_parts.append(
-                chunk_eval(
-                    t_lde[:, sl], t_nxt[:, sl], a_lde[:, sl], a_nxt[:, sl],
-                    z_last[sl], l_first[sl], l_last[sl],
-                    alphas, alpha_pows, challenges, ctl_totals, weight_arrays,
-                )
-            )
-        accs = torch.cat(acc_parts, dim=1)
-        shift_inv_pows = tensor_from_u64(shift_inv_pows_np[block], dev)
-        q_vals = gl.mul(accs, inv_z_h[None])
+        sel = _selectors(n_log, rate, dev, lo_block, N // D)
+        if kernels.is_plain(t_lde):
+            q_vals = _eager_quotient_values(
+                stark, t_lde, _next_rows(t_lde, step, mesh), a_lde, _next_rows(a_lde, step, mesh),
+                sel, alphas, challenges, ctl_totals, weight_arrays)
+        else:
+            tape = tape_mod.tape_of(stark, len(alphas))
+            inputs = tape_mod.scalar_inputs(stark, alphas, challenges, ctl_totals, dev)
+            if mesh is None:
+                q_vals = quotient_cuda.quotient_values(tape, t_lde, t_lde, a_lde, a_lde, sel,
+                                                       inputs, nxt_shift=step)
+            else:
+                q_vals = quotient_cuda.quotient_values(
+                    tape, t_lde, _next_rows(t_lde, step, mesh), a_lde,
+                    _next_rows(a_lde, step, mesh), sel, inputs)
+        shift_inv_pows = tensor_from_u64(shift_inv_pows_np[lo_block : lo_block + N // D], dev)
         q_vals = ntt_cuda.intt(q_vals) if mesh is None else pntt.mesh_intt(q_vals, mesh)
         q_coeffs = gl.mul(q_vals, shift_inv_pows[None])
         if mesh is not None:
@@ -620,11 +651,8 @@ def _prove(stark, trace_rows, ctl_values, config, tt, device_fs, mesh, mesh_axis
 
     # ---- S3: quotient --------------------------------------------------
     with tt.scope("quotient"):
-        alpha_pows = tensor_from_u64(
-            np.stack([gl.powers(a, 513) for a in alphas]), dev
-        )
         q_chunks = _make_quotient(stark, n_log, config, mesh)(
-            t_lde, a_lde, alphas, alpha_pows, challenges, ctl_totals,
+            t_lde, a_lde, alphas, challenges, ctl_totals,
             [[wt for (_, wt) in per_ch] for per_ch in ctl_weight_specs],
         )
         q_lde, q_levels = commit_coeffs(q_chunks, config, mesh)
@@ -795,10 +823,9 @@ def _fs1(ch, stark: Stark, n_log: int, nc: int, cap, ctl_rows):
 
 
 def _fs2(ch, nc: int, cap):
-    """Absorb the aux cap; squeeze the constraint alphas and their powers."""
+    """Absorb the aux cap; squeeze the constraint alphas."""
     ch.observe_cap(cap)
-    alphas = ch.get_n_challenges(nc)
-    return alphas, torch.stack([dcm.powers_vec(a, 513) for a in alphas])
+    return ch.get_n_challenges(nc)
 
 
 def _fs3(ch, cap) -> Ext:
@@ -893,12 +920,12 @@ def _prove_device_fs(stark: Stark, trace_cols: torch.Tensor, ctl_values, config:
         a_coeffs, a_lde, a_levels = commit_values(aux_cols, config, tt, mesh)
     del aux_cols, trace_cols  # queries read the LDEs, not the values
     with tt.scope("fs2"):
-        alphas, alpha_pows = _fs2(ch, nc, _cap(a_levels))
+        alphas = _fs2(ch, nc, _cap(a_levels))
 
     # ---- S3: quotient + commit + fs3 --------------------------------------
     with tt.scope("quotient"):
         q_chunks = _make_quotient(stark, n_log, config, mesh)(
-            t_lde, a_lde, list(alphas), alpha_pows, list(zip(betas, gammas)), totals,
+            t_lde, a_lde, list(alphas), list(zip(betas, gammas)), totals,
             [[wt for _, wt in per_ch] for per_ch in ctl_weight_specs],
         )
         q_lde, q_levels = commit_coeffs(q_chunks, config, mesh)

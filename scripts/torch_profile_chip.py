@@ -92,9 +92,7 @@ def fixed_challenges(stark, device) -> dict:
                             device=device),
                vec([w for _, w in ctl.flat_weights(b, gl.P)])) for ctl in stark.ctls]
              for b in (3, 5)]
-    alphas = [13, 17]
-    return {"betas": [3, 5], "gammas": [7, 11], "specs": specs, "alphas": alphas,
-            "alpha_pows": vec(np.stack([gl.powers(a, 513) for a in alphas])),
+    return {"betas": [3, 5], "gammas": [7, 11], "specs": specs, "alphas": [13, 17],
             "totals": [[1] * len(stark.ctls)] * 2}
 
 
@@ -148,9 +146,10 @@ def hot_path(machine: str, n_ops: int, config, reps: int, device, report) -> Non
     quotient = prove_mod._make_quotient(stark, n_log, config)
     weights = [[wt for _, wt in per] for per in ch["specs"]]
     challenges = list(zip(ch["betas"], ch["gammas"]))
-    step(f"quotient ({prove_mod.QUOTIENT_CHUNK}-point chunks)",
-         lambda pair: quotient(pair[0], pair[1], ch["alphas"], ch["alpha_pows"], challenges,
-                               ch["totals"], weights),
+    how = ("K5, one launch" if torch.device(device).type == "cuda"
+           else f"eager, {prove_mod.QUOTIENT_CHUNK}-point chunks")
+    step(f"quotient ({how}; iNTT, degree split)",
+         lambda pair: quotient(pair[0], pair[1], ch["alphas"], challenges, ch["totals"], weights),
          list(zip(ldes, a_ldes)))
 
 

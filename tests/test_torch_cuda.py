@@ -665,3 +665,165 @@ def test_g1_step_allocations_against_kernel_count(card, step):
     print(f"\nG1 {step} step: {span.allocs} allocation requests, {len(kernels)} kernels, "
           f"ratio {span.allocs / len(kernels):.3f}")
     assert len(kernels) > 1000 and 0.5 < span.allocs / len(kernels) < 2.0
+
+
+# ---------------------------------------------------------------------------
+# K5: the quotient's constraint tape (prover/tape.py, csrc/quotient.cu)
+# ---------------------------------------------------------------------------
+
+def _tape_machines_on_path():
+    import pathlib
+    import sys
+
+    here = str(pathlib.Path(__file__).resolve().parent)
+    if here not in sys.path:
+        sys.path.insert(0, here)
+
+
+# (machine, coset points at its path key): 2^16 rows at rate 1, the demo
+# machines' 2^8, the micro machines' 2^6, the outer proofs' 2^20 and 2^16
+K5_PATH_KEYS = [("fq_exp", 1 << 17), ("g1_scalar_mul", 1 << 17), ("g2_scalar_mul", 1 << 17),
+                ("demo", 1 << 9), ("keyed_demo", 1 << 9), ("mod_zero", 1 << 7),
+                ("g1_add", 1 << 7), ("outer", 1 << 17), ("outer_poseidon", 1 << 17),
+                ("outer_circuit2", 1 << 21)]
+K5_ODD_SIZE = 1000  # not a multiple of the kernel's 128-thread blocks
+
+
+@pytest.mark.parametrize("machine, n", K5_PATH_KEYS + [(m, K5_ODD_SIZE) for m, _ in K5_PATH_KEYS])
+def test_k5_equals_the_plain_tape(card, machine, n):
+    """K5 against the tape run in plain torch, with the next rows read at
+    the rate's shift from the LDEs themselves (single device) and from
+    aligned next rows (a mesh rank's halo-extended block)."""
+    _tape_machines_on_path()
+    from plonky2_bn254_tpu_torch.prover import quotient_cuda
+    from plonky2_bn254_tpu_torch.prover import tape as tape_mod
+    from torch_tape_machines import MACHINES, random_case
+
+    stark = MACHINES[machine]()
+    case = random_case(stark, n, seed=n % 97, device=card, as_tensors=True)
+    tape = tape_mod.tape_of(stark, 2)
+    inputs = tape_mod.scalar_inputs(stark, case["alphas"], case["challenges"], case["totals"],
+                                    card)
+    args = (tape, case["t_loc"], case["t_loc"], case["a_loc"], case["a_loc"], case["sel"], inputs)
+    before = kernels.LAUNCHES["K5"]
+    got = quotient_cuda.quotient_values(*args, nxt_shift=2)
+    assert kernels.LAUNCHES["K5"] == before + 1
+    assert kernels.CALLS["K5"][(stark.width, len(tape.prog), tape.n_slots, n)] >= 1
+    assert torch.equal(got, quotient_cuda.quotient_values_plain(*args, nxt_shift=2))
+    aligned = (tape, case["t_loc"], case["t_nxt"], case["a_loc"], case["a_nxt"], case["sel"],
+               inputs)
+    assert torch.equal(quotient_cuda.quotient_values(*aligned),
+                       quotient_cuda.quotient_values_plain(*aligned))
+
+
+def _eager_quotient_on_card(monkeypatch, stark):
+    """Swap K5 for the eager GL-ring evaluation the prover ran before it
+    (`prove._eager_quotient_values`), on the card, from the same inputs."""
+    from plonky2_bn254_tpu_torch.prover import device_challenger as dcm
+    from plonky2_bn254_tpu_torch.prover import prove as prove_mod
+    from plonky2_bn254_tpu_torch.prover import quotient_cuda
+
+    def eager(tape, t_loc, t_nxt, a_loc, a_nxt, sel, inputs, nxt_shift=0):
+        nc = tape.n_out
+        t_nxt, a_nxt = (torch.roll(x, -nxt_shift, 1) for x in (t_nxt, a_nxt))
+        alphas = list(inputs[:nc])
+        challenges = [(inputs[nc + 2 * i], inputs[nc + 2 * i + 1]) for i in range(nc)]
+        totals = inputs[3 * nc:].reshape(nc, -1)
+        weights = [dcm.ctl_weights_device(stark, b) for b, _ in challenges]
+        return prove_mod._eager_quotient_values(stark, t_loc, t_nxt, a_loc, a_nxt, sel, alphas,
+                                                challenges, totals, weights)
+
+    monkeypatch.setattr(quotient_cuda, "quotient_values", eager)
+
+
+def _outer_poseidon_case(card):
+    """The outer trace of two chained in-circuit permutations and a gate on
+    their output (tests/test_torch_outer.py's Poseidon circuit) at 2^16
+    rows."""
+    from plonky2_bn254_tpu_torch import circuit as ckt
+    from plonky2_bn254_tpu_torch.circuit import outer
+    from plonky2_bn254_tpu_torch.circuit import poseidon_gadget as pg
+
+    b = ckt.CircuitBuilder()
+    ins = [b.add_virtual_target() for _ in range(12)]
+    outs = pg.permute_targets(b, pg.permute_targets(b, ins))
+    b.register_public_input(outs[0])
+    b.register_public_input(b.mul_add(outs[0], outs[1], outs[2]))
+    pw = ckt.Witness()
+    for t, v in zip(ins, np.random.default_rng(2024).integers(0, gl.P, size=12, dtype=np.uint64)):
+        pw.set_target(t, int(v))
+    circuit = b.build()
+    data = outer.compile_outer(circuit, 16, device=card)
+    trace, _, ctl = outer.build_outer_trace(data, circuit.generate_witness(pw, device=card))
+    return data.stark, trace, ctl
+
+
+@pytest.fixture(scope="module")
+def k5_proof_cases():
+    """machine -> (stark, trace on the card, CTL values): 128-op G1 and
+    FqExp batches drawn as chip_smoke.py draws them, and an outer trace."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels compile and run only on the card)")
+    import pathlib
+    import sys
+
+    card = torch.device("cuda", 0)
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    cases = {}
+    for name in ("g1", "fq_exp"):
+        path = chip_smoke.Path(name, card)
+        cases[name] = (path.stark, path.trace(), path.ctl_values)
+    cases["outer"] = _outer_poseidon_case(card)
+    return cases
+
+
+@pytest.mark.parametrize("device_fs", [True, False])
+@pytest.mark.parametrize("machine", ["g1", "fq_exp", "outer"])
+def test_k5_proofs_equal_the_eager_quotients(card, k5_proof_cases, monkeypatch, machine,
+                                             device_fs):
+    """A whole proof with K5 is the proof the eager quotient makes from the
+    same trace, field by field, in either transcript; K5 launches once."""
+    from plonky2_bn254_tpu_torch.prover import prove as prove_mod
+    from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG
+
+    stark, trace, ctl = k5_proof_cases[machine]
+    as_json = lambda p: json.dumps(proof_to_fields(p), default=lambda v: v.tolist())
+    kernels.reset_launches()
+    with_k5 = as_json(prove_mod.prove(stark, trace, ctl, DEFAULT_CONFIG, device_fs=device_fs))
+    assert kernels.LAUNCHES["K5"] == 1
+    _eager_quotient_on_card(monkeypatch, stark)
+    kernels.reset_launches()
+    eager = as_json(prove_mod.prove(stark, trace, ctl, DEFAULT_CONFIG, device_fs=device_fs))
+    assert kernels.LAUNCHES["K5"] == 0
+    assert with_k5 == eager
+
+
+def test_k5_rejects_what_it_does_not_take(card):
+    """A wrong dtype, a tensor off the card, a wrong shape or a strided view
+    raises before any launch."""
+    _tape_machines_on_path()
+    from plonky2_bn254_tpu_torch.prover import quotient_cuda
+    from plonky2_bn254_tpu_torch.prover import tape as tape_mod
+    from torch_tape_machines import MACHINES, random_case
+
+    stark = MACHINES["demo"]()
+    c = random_case(stark, 64, seed=1, device=card)
+    tape = tape_mod.tape_of(stark, 2)
+    inputs = tape_mod.scalar_inputs(stark, c["alphas"], c["challenges"], c["totals"], card)
+    good = [tape, c["t_loc"], c["t_nxt"], c["a_loc"], c["a_nxt"], c["sel"], inputs]
+    bad = {
+        "dtype": (1, c["t_loc"].to(torch.int32)),
+        "device": (5, c["sel"].cpu()),
+        "shape": (3, c["a_loc"][:-1]),
+        "inputs": (6, inputs[:-1]),
+        "strided": (1, c["t_loc"].repeat(1, 2)[:, ::2]),
+    }
+    before = kernels.LAUNCHES["K5"]
+    for what, (k, x) in bad.items():
+        args = list(good)
+        args[k] = x
+        with pytest.raises(ValueError):
+            quotient_cuda.quotient_values(*args)
+    assert kernels.LAUNCHES["K5"] == before

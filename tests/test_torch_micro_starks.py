@@ -27,9 +27,7 @@ from plonky2_bn254_tpu_torch.interop import proof_to_fields, u64_from_tensor
 from plonky2_bn254_tpu_torch.prover import prove as prove_mod
 from plonky2_bn254_tpu_torch.prover import verify as verify_mod
 from plonky2_bn254_tpu_torch.prover.config import TEST_CONFIG
-from plonky2_bn254_tpu_torch.starks import bigint, fq_mul, g1_add, limbs
-from plonky2_bn254_tpu_torch.starks.layout import G1_ADD_AUX_LAYOUT, MODULUS_ZERO_AUX_LAYOUT, Layout
-from plonky2_bn254_tpu_torch.starks.table import CtlSpec, Stark
+from plonky2_bn254_tpu_torch.starks import fq_mul, g1_add, limbs
 from test_micro_starks import (
     G1A_LAYOUT as JG1A_LAYOUT,
     MZ_LAYOUT as JMZ_LAYOUT,
@@ -39,31 +37,13 @@ from test_micro_starks import (
     _pad_rows as _jpad_rows,
 )
 from test_torch_prove import assert_fields_equal
+from torch_tape_machines import g1_add_stark, mod_zero_stark
 
 torch.set_num_threads(2)
 N_ROWS = 64
 
-MZ_LAYOUT = Layout([("a", 16), ("b", 16), ("c", 16), ("aux", MODULUS_ZERO_AUX_LAYOUT),
-                    ("filter", 1)])
-G1A_LAYOUT = Layout([("ax", 16), ("ay", 16), ("bx", 16), ("by", 16), ("cx", 16), ("cy", 16),
-                     ("aux", G1_ADD_AUX_LAYOUT), ("filter", 1)])
-
-
 def _pad_rows(rows: torch.Tensor) -> torch.Tensor:
     return torch.cat([rows, rows.new_zeros((N_ROWS - rows.shape[0], rows.shape[1]))])
-
-
-def _eval_mod_zero(consumer, ring, local, next_):
-    v = MZ_LAYOUT.view(local)
-    modulus = [ring.const(m) for m in bigint.MOD_LIMBS_INT]
-    fq_mul.eval_fq_mul(consumer, ring, v["filter"], modulus, v["a"], v["b"], v["c"], v["aux"])
-
-
-def _eval_g1_add(consumer, ring, local, next_):
-    v = G1A_LAYOUT.view(local)
-    modulus = [ring.const(m) for m in bigint.MOD_LIMBS_INT]
-    g1_add.eval_g1_add(consumer, ring, v["filter"], modulus, {"x": v["ax"], "y": v["ay"]},
-                       {"x": v["bx"], "y": v["by"]}, {"x": v["cx"], "y": v["cy"]}, v["aux"])
 
 
 def _g1_aux_cols(aux) -> list:
@@ -92,8 +72,7 @@ def mod_zero_machines(rng):
                                          jaux.quot_abs, jaux.aux_lo, jaux.aux_hi,
                                          jnp.ones((n, 1), jnp.int64)], axis=-1), JMZ_LAYOUT.width)
     cols = [("single", i) for i in range(48)]
-    stark = Stark(name="mod_zero_micro", width=MZ_LAYOUT.width, eval_fn=_eval_mod_zero,
-                  lookups=[], ctls=[CtlSpec(columns=cols, filter_col=MZ_LAYOUT.col("filter"))])
+    stark = mod_zero_stark()
     jstark = JStark(name="mod_zero_micro", width=JMZ_LAYOUT.width, eval_fn=_jeval_mod_zero,
                     lookups=[], ctls=[JCtlSpec(columns=cols, filter_col=JMZ_LAYOUT.col("filter"))])
     ctl = {0: [limbs.h_int_to_limbs(x, 16) + limbs.h_int_to_limbs(y, 16)
@@ -118,8 +97,7 @@ def g1_add_machines(rng):
                                         + [jnp.ones((n, 1), jnp.int64)], axis=-1),
                         JG1A_LAYOUT.width)
     cols = [("single", i) for i in range(96)]
-    stark = Stark(name="g1_add_micro", width=G1A_LAYOUT.width, eval_fn=_eval_g1_add,
-                  lookups=[], ctls=[CtlSpec(columns=cols, filter_col=G1A_LAYOUT.col("filter"))])
+    stark = g1_add_stark()
     jstark = JStark(name="g1_add_micro", width=JG1A_LAYOUT.width, eval_fn=_jeval_g1_add,
                     lookups=[], ctls=[JCtlSpec(columns=cols, filter_col=JG1A_LAYOUT.col("filter"))])
     ctl = {0: []}
