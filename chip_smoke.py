@@ -24,7 +24,8 @@ Phases (any failure exits non-zero before the result line):
      transcript on the device (the default on the card), on the host, and
      on the device again (the first proof of a path meets cold tables),
      each with the launch counts set to 0 just before and read just after
-     (every kernel launched, K5 once a proof; device FS through K2t, at most 16 transitions,
+     (every kernel launched, K5 once a proof, K6 once a batch inversion:
+     k6_per_proof; device FS through K2t, at most 16 transitions,
      and K2 never at [1, 12]; host FS no K2t), its synchronised
      wall and its synchronising CUDA operations (torch.cuda sync debug
      mode) by site; the proofs equal field by field; the device-FS
@@ -94,7 +95,8 @@ Phases (any failure exits non-zero before the result line):
      constraint tape at every coset point) at every key whose machine the
      run still holds and at 1000 points, against the tape run in plain
      torch, timed beside the bound of its tape's operations and the bytes
-     it reads (bounds.quotient_work);
+     it reads (bounds.quotient_work); K6 (the batch inverse) with a zero
+     every 997 elements and at both ends, timed beside bounds.batch_inv_work;
   9. per path, the stage times and wall of one proof under the
      span timer (TimingTree) and its peak device memory; on the machine paths
      its stages beside the host-FS proof's of phase 5.
@@ -165,8 +167,23 @@ KERNELS = {
     # XLA; the port's eager GL-ring chunks, now one launch on a tape
     "K5": ("quotient_values", "plonky2_bn254_tpu_torch/csrc/quotient.cu",
            "plonky2_bn254_tpu/prover/prove.py (quotient stage)"),
+    # no pallas_call: the reference inverts in XLA; the port's plain
+    # Montgomery batch in tensor operations, now one launch
+    "K6": ("batch_inv", "plonky2_bn254_tpu_torch/csrc/inverse.cu",
+           "plonky2_bn254_tpu/field/goldilocks.py batch_inv"),
 }
 K5_ODD_N = 1000  # coset points beside each path key: not a multiple of a block
+K6_ZERO_EVERY = 997  # K6's inputs hold a zero this often (and at both ends)
+
+
+def k6_per_proof(stark, num_challenges: int, device_fs: bool) -> int:
+    """K6 launches one proof of `stark` makes once its domain's selectors
+    are cached (`prove._domain_arrays`, three inversions the first time a
+    process proves at a size): per challenge set two a lookup (its helper
+    columns, its table) and one a CTL (its denominators); two in the FRI
+    oracle; with the device transcript one for the CTL totals, if any."""
+    per_set = 2 * len(stark.lookups) + len(stark.ctls)
+    return num_challenges * per_set + 2 + int(device_fs and bool(stark.ctls))
 
 
 def log(msg: str) -> None:
@@ -304,11 +321,14 @@ def kernel_call(kid: str, key: tuple):
     kernels.CALLS.  K1m's wrapper and plain version return the levels as
     one tensor."""
     from plonky2_bn254_tpu_torch import bounds
-    from plonky2_bn254_tpu_torch.field import ntt_cuda, poseidon_cuda as pc
+    from plonky2_bn254_tpu_torch.field import inv_cuda, ntt_cuda, poseidon_cuda as pc
 
     def bound(ops, nbytes, chain=0):
         return lambda sms, mhz: bounds.bound_ms(ops, nbytes, sms, mhz, chain)
 
+    if kid == "K6":
+        return (inv_cuda.batch_inv, inv_cuda.batch_inv_plain,
+                bound(*bounds.batch_inv_work(*key)), key)
     if kid == "K1":
         return pc.hash_leaves, pc.hash_leaves_plain, bound(*bounds.hash_leaves_work(*key)), key
     if kid == "K1m":
@@ -345,6 +365,8 @@ ODD_KEYS = {
            (1, 1, 1, True), (7, 1 << 17, 1 << 17, False)],
     "K4": [(5, 8, 16, False), (1, 1, 2, False), (7, 1 << 12, 1 << 14, False),
            (3, 1 << 16, 1 << 18, False)],
+    # elements: none, one, either side of a tile's 4,096 and of 1,024, a prime
+    "K6": [(0,), (1,), (1023,), (1025,), (4095,), (4097,), (10007,)],
 }
 
 
@@ -457,7 +479,7 @@ def compare_kernels(device, calls_by_path: dict, sms: int, clock_mhz: float) -> 
     ODD_KEYS.  Raises on the first disagreement."""
     with multiprocessing.get_context("spawn").Pool(1) as pool:
         k2t_check = start_k2t(device, calls_by_path, sms, clock_mhz, pool)
-        results = compare_k1_to_k4(device, calls_by_path, sms, clock_mhz)
+        results = compare_by_key(device, calls_by_path, sms, clock_mhz)
         results["K5"] = compare_k5(device, calls_by_path, sms, clock_mhz)
         results["K2t"] = k2t_check()
     return results
@@ -521,9 +543,9 @@ def compare_k5(device, calls_by_path: dict, sms: int, clock_mhz: float) -> dict:
     return {"max_abs_err": err, "timed": rows}
 
 
-def compare_k1_to_k4(device, calls_by_path: dict, sms: int, clock_mhz: float) -> dict:
-    """K1-K4 and K1m against their plain versions on the card (see
-    compare_kernels)."""
+def compare_by_key(device, calls_by_path: dict, sms: int, clock_mhz: float) -> dict:
+    """K1-K4, K1m and K6 against their plain versions on the card (see
+    compare_kernels); K6's inputs hold zeros."""
     rng = np.random.default_rng(SEED)
     results = {}
     for kid, odd in ODD_KEYS.items():
@@ -538,6 +560,9 @@ def compare_k1_to_k4(device, calls_by_path: dict, sms: int, clock_mhz: float) ->
         for i, key in enumerate(timed + [k for k in odd if k not in calls]):
             kern, plain, bound_of, shape = kernel_call(kid, key)
             x = rand_residues(rng, shape, device)
+            if kid == "K6" and x.numel():
+                x[::K6_ZERO_EVERY] = 0
+                x[-1] = 0
             got = kern(x)
             want = plain(x)  # also the warm-up of the plain timing below
             torch.cuda.synchronize()
@@ -648,24 +673,31 @@ def flow_run(path: Path, trace, device_fs: bool):
     synchronised wall, its synchronising operations by site and its
     launches; fails unless every kernel launched (K2t, the device
     transcript's transitions, only in the device flow, at most
-    MAX_TRANSITIONS times) and K2 never at [1, 12]."""
+    MAX_TRANSITIONS times), K2 never at [1, 12], K5 once and K6 as often as
+    `k6_per_proof` counts."""
     from plonky2_bn254_tpu_torch import kernels
+    from plonky2_bn254_tpu_torch.prover import prove as prove_mod
+    from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG
 
     flow = "device FS" if device_fs else "host FS"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(path.device)
     kernels.reset_launches()
+    domains = prove_mod._domain_arrays.cache_info().misses
     t0 = time.perf_counter()
     proof, sites = count_syncs(lambda: path.prove_trace(trace, device_fs=device_fs))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    k6_want = (k6_per_proof(path.stark, DEFAULT_CONFIG.num_challenges, device_fs)
+               + 3 * (prove_mod._domain_arrays.cache_info().misses - domains))
     calls = {k: dict(kernels.CALLS[k]) for k in kernels.KERNEL_IDS}
     k2_single = calls["K2"].get((1,), 0)
     peak = gb(torch.cuda.max_memory_allocated(path.device))
     log(f"  {flow}: synchronised wall {wall:.3f} s; {sum(sites.values())} synchronising "
         f"operations {dict(sites.most_common())}; launches {launches}, K2 at [1, 12] "
-        f"{k2_single}, K2t {launches['K2t']}; peak device memory {peak:.2f} GB")
+        f"{k2_single}, K2t {launches['K2t']}, K6 {launches['K6']} (counted {k6_want}); peak "
+        f"device memory {peak:.2f} GB")
     missing = [k for k in kernels.KERNEL_IDS if launches[k] <= 0 and (device_fs or k != "K2t")]
     if missing:
         raise AssertionError(f"path {path.name} ({flow}) never launched {missing}")
@@ -675,6 +707,9 @@ def flow_run(path: Path, trace, device_fs: bool):
     if launches["K5"] != 1:
         raise AssertionError(f"path {path.name} ({flow}): K5 launched {launches['K5']} times, "
                              f"not once")
+    if launches["K6"] != k6_want:
+        raise AssertionError(f"path {path.name} ({flow}): K6 launched {launches['K6']} times, "
+                             f"not the {k6_want} batch inversions of the proof")
     return proof, {"wall_s": wall, "syncs": sum(sites.values()), "sync_sites": dict(sites),
                    "launches": launches, "k2_single_launches": k2_single,
                    "k2t_launches": launches["K2t"], "peak_gb": peak, "calls": calls}

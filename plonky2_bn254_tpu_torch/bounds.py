@@ -235,9 +235,24 @@ def quotient_work(tape, n: int) -> tuple:
     return n * per_point, 8 * n * words
 
 
+FERMAT_PRODUCTS = 73  # x^(p - 2): 64 squarings and 9 products (csrc/inverse.cu)
+
+
+def batch_inv_work(n: int) -> tuple:
+    """(ops, bytes, critical path in cycles) of K6 inverting n elements:
+    Montgomery's trick, 3 (n - 1) products (a prefix product up, two down)
+    and one Fermat inversion of the whole batch's product, whose chain of
+    dependent products bounds small batches; each element read once and
+    written once."""
+    if n == 0:
+        return 0, 0, 0
+    products = 3 * (n - 1) + FERMAT_PRODUCTS
+    return (products * OP_COST["mul"], 16 * n, FERMAT_PRODUCTS * OP_LATENCY["mul"])
+
+
 def bound_ms(ops: int, nbytes: int, sms: int, clock_mhz: float, chain_cycles: int = 0) -> tuple:
     """(bound in ms, "operations" or "bytes").  `chain_cycles`: the critical
-    path of operations that depend on one another (K1, K2, K2t), which
+    path of operations that depend on one another (K1, K2, K2t, K6), which
     bounds them from below at the clock as the issue rate does."""
     t_ops = max(ops / (INT32_OPS_PER_CLK_PER_SM * sms * clock_mhz * 1e6),
                 chain_cycles / (clock_mhz * 1e6))

@@ -26,7 +26,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("poseidon.cu", "ntt.cu", "quotient.cu")
+SOURCES = ("poseidon.cu", "ntt.cu", "quotient.cu", "inverse.cu")
 HEADERS = ("goldilocks.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -38,8 +38,8 @@ _COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared")
 # below the regime threshold in one launch), K2 raw permutation, K2t one
 # transcript transition (absorb and squeeze on one sponge state), K3
 # NTT/iNTT, K4 coset LDE, K5 the quotient's constraints (a machine's tape
-# at every coset point).
-KERNEL_IDS = ("K1", "K1m", "K2", "K2t", "K3", "K4", "K5")
+# at every coset point), K6 a batch of inverses.
+KERNEL_IDS = ("K1", "K1m", "K2", "K2t", "K3", "K4", "K5", "K6")
 LAUNCHES: Counter = Counter({k: 0 for k in KERNEL_IDS})
 # kernel id -> Counter of the keys its launches were made with (see the wrappers)
 CALLS: dict = {k: Counter() for k in KERNEL_IDS}
@@ -62,9 +62,12 @@ _SIGNATURES = {
     "p2_quotient_max_slots": (),
     "p2_quotient_tape": (_VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _INT,
                          _VP, _VP, _I64, _VP, _VP, _I64, _VP, _VP, _I64, _VP),
+    "p2_batch_inverse_block": (),
+    "p2_batch_inverse": (_VP, _VP, _I64, _VP),
 }
 
-_RESTYPES = {"p2_tree_counters": _I64}  # the others return a CUDA error code
+# the others return a CUDA error code
+_RESTYPES = {"p2_tree_counters": _I64, "p2_batch_inverse_block": _I64}
 
 
 class BuildInfo:

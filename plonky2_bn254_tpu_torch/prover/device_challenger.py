@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..field import goldilocks as gl
+from ..field import inv_cuda
 from ..field import poseidon_cuda
 from ..field.poseidon_constants import WIDTH
 from ..interop import tensor_from_u64
@@ -225,5 +226,5 @@ def ctl_totals_device(ctl_rows: List[torch.Tensor], betas: torch.Tensor,
             terms = gl.mul(rows[None], bp[:, None, : rows.shape[1]])  # [nc, rows, cols]
             dens[:, c, : n_rows[c]] = gl.add(tree_reduce0(terms.permute(2, 0, 1)), gammas[:, None])
     live = torch.arange(most_rows)[None, :] < torch.tensor(n_rows, dtype=torch.int64)[:, None]
-    inv = torch.where(live.to(dev, non_blocking=True), gl.batch_inv(dens), 0)
+    inv = torch.where(live.to(dev, non_blocking=True), inv_cuda.batch_inv(dens), 0)
     return tree_reduce0(inv.permute(2, 0, 1))

@@ -15,8 +15,10 @@ stage code and give the same proof:
 
 Commits go through the hand kernels: iNTT (K3), coset LDE (K4) and the
 Merkle sponge (K1); the quotient's constraints are one K5 launch a proof
-(the machine's tape at every coset point); the FRI grind uses K2, and each
-transition of the device transcript is one K2t launch.
+(the machine's tape at every coset point); the FRI grind uses K2, each
+transition of the device transcript is one K2t launch, and each batch
+inversion (the LogUp helpers and table, the CTL denominators and totals,
+the FRI oracle's norms, the domain's selectors) is one K6 launch.
 
 On a mesh (`prove(..., mesh=...)`, `parallel/mesh.py`) every rank runs
 either flow on its contiguous block of the rows: the commits take the mesh
@@ -42,7 +44,7 @@ import torch
 
 from .. import kernels
 from ..field import goldilocks as gl
-from ..field import ntt, ntt_cuda
+from ..field import inv_cuda, ntt, ntt_cuda
 from ..field.extension import Ext, GLExt
 from ..interop import tensor_from_u64, u64_from_tensor
 from ..parallel import ntt as pntt
@@ -138,13 +140,13 @@ def _domain_arrays(n_log: int, rate_bits: int, device: torch.device):
     xn_period = tensor_from_u64(ntt._coset_powers(1 << rate_bits, g2), device)
     xn = gl.mul_const(xn_period.repeat(N >> rate_bits), shift_n)
     z_h = gl.sub(xn, 1)
-    inv_z_h = gl.batch_inv(z_h)
+    inv_z_h = inv_cuda.batch_inv(z_h)
     g = gl.primitive_root_of_unity(n_log)
     g_last = pow(g, n - 1, gl.P)
     z_last = gl.sub(xs, g_last)
     n_inv = gl.h_inv(n)
-    l_first = gl.mul(z_h, gl.batch_inv(gl.mul_const(gl.sub(xs, 1), n)))
-    l_last = gl.mul(gl.mul_const(z_h, g_last * n_inv % gl.P), gl.batch_inv(z_last))
+    l_first = gl.mul(z_h, inv_cuda.batch_inv(gl.mul_const(gl.sub(xs, 1), n)))
+    l_last = gl.mul(gl.mul_const(z_h, g_last * n_inv % gl.P), inv_cuda.batch_inv(z_last))
     return xs, inv_z_h, z_last, l_first, l_last
 
 
@@ -258,7 +260,7 @@ def _make_aux(stark: Stark, mesh: Mesh = None):
                 else:
                     cols = gl.add(trace_cols[idx(lk.columns)], gamma_c)
                     table_raw = gl.add(trace_cols[lk.table_col], gamma_c)
-                inv_cols = gl.batch_inv(cols)
+                inv_cols = inv_cuda.batch_inv(cols)
                 if filt_idx is not None:
                     # helper terms become filter/(gamma+entry); None = unfiltered
                     filt = torch.stack([
@@ -271,7 +273,7 @@ def _make_aux(stark: Stark, mesh: Mesh = None):
                 if odd.shape[0] < even.shape[0]:
                     odd = torch.cat([odd, torch.zeros_like(even[:1])], dim=0)
                 helpers = gl.add(even, odd)
-                table_inv = gl.batch_inv(table_raw)
+                table_inv = inv_cuda.batch_inv(table_raw)
                 freq = trace_cols[lk.freq_col]
                 aux.append(helpers)
                 h_sum = cons.tree_reduce0(helpers)
@@ -282,7 +284,7 @@ def _make_aux(stark: Stark, mesh: Mesh = None):
                 weighted = gl.mul(trace_cols[col_idx], weights[:, None])
                 acc = gl.add(cons.tree_reduce0(weighted), gamma_c)
                 filt = trace_cols[ctl.filter_col]
-                aux.append(_rev_cumsum(gl.mul(filt, gl.batch_inv(acc)), mesh)[None])
+                aux.append(_rev_cumsum(gl.mul(filt, inv_cuda.batch_inv(acc)), mesh)[None])
         return torch.cat(aux, dim=0)
 
     return aux_core
@@ -493,7 +495,7 @@ def _fri_oracle(lde_batches, alpha_pows, s_zeta, s_zeta_g, zeta, zeta_g, alpha_o
         d0 = gl.sub(xs, point.c0)
         d1 = gl.neg(point.c1).expand_as(xs)
         norm = gl.sub(gl.square(d0), gl.mul_const(gl.square(d1), 7))
-        ninv = gl.batch_inv(norm)
+        ninv = inv_cuda.batch_inv(norm)
         inv_diff = Ext(gl.mul(d0, ninv), gl.mul(gl.neg(d1), ninv))
         num = Ext(gl.sub(S0, s_at.c0), gl.sub(S1, s_at.c1))
         return num * inv_diff

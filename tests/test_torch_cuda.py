@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels K1-K4, K1m and K2t against their plain PyTorch versions.
+"""Hand-written CUDA kernels K1-K6, K1m and K2t against their plain PyTorch versions.
 
 These need an NVIDIA card with nvcc and skip without one.  On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -759,9 +759,9 @@ def _outer_poseidon_case(card):
 
 
 @pytest.fixture(scope="module")
-def k5_proof_cases():
-    """machine -> (stark, trace on the card, CTL values): 128-op G1 and
-    FqExp batches drawn as chip_smoke.py draws them, and an outer trace."""
+def proof_cases():
+    """machine -> (stark, trace on the card, CTL values): 128-op G1, FqExp
+    and G2 batches drawn as chip_smoke.py draws them, and an outer trace."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels compile and run only on the card)")
     import pathlib
@@ -772,7 +772,7 @@ def k5_proof_cases():
     import chip_smoke
 
     cases = {}
-    for name in ("g1", "fq_exp"):
+    for name in ("g1", "fq_exp", "g2"):
         path = chip_smoke.Path(name, card)
         cases[name] = (path.stark, path.trace(), path.ctl_values)
     cases["outer"] = _outer_poseidon_case(card)
@@ -781,14 +781,14 @@ def k5_proof_cases():
 
 @pytest.mark.parametrize("device_fs", [True, False])
 @pytest.mark.parametrize("machine", ["g1", "fq_exp", "outer"])
-def test_k5_proofs_equal_the_eager_quotients(card, k5_proof_cases, monkeypatch, machine,
+def test_k5_proofs_equal_the_eager_quotients(card, proof_cases, monkeypatch, machine,
                                              device_fs):
     """A whole proof with K5 is the proof the eager quotient makes from the
     same trace, field by field, in either transcript; K5 launches once."""
     from plonky2_bn254_tpu_torch.prover import prove as prove_mod
     from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG
 
-    stark, trace, ctl = k5_proof_cases[machine]
+    stark, trace, ctl = proof_cases[machine]
     as_json = lambda p: json.dumps(proof_to_fields(p), default=lambda v: v.tolist())
     kernels.reset_launches()
     with_k5 = as_json(prove_mod.prove(stark, trace, ctl, DEFAULT_CONFIG, device_fs=device_fs))
@@ -827,3 +827,92 @@ def test_k5_rejects_what_it_does_not_take(card):
         with pytest.raises(ValueError):
             quotient_cuda.quotient_values(*args)
     assert kernels.LAUNCHES["K5"] == before
+
+
+# ---------------------------------------------------------------------------
+# K6: the batch inverse (field/inv_cuda.py, csrc/inverse.cu)
+# ---------------------------------------------------------------------------
+
+# Elements at the keys the paths launch: G2's, G1's and FqExp's range-checked
+# columns at 2^16 rows, a table or CTL column (2^16), the FRI oracle's norms
+# and the domain's selectors (2^17), the outer proof's 2^20, the CTL totals'
+# denominators (2 challenge sets x 2 CTLs x 128 rows); then none, one, either
+# side of 1,024 and of a 4,096-element tile, and a prime.
+K6_PATH_SIZES = [900 << 16, 450 << 16, 128 << 16, 1 << 16, 1 << 17, 1 << 20, 2 * 2 * 128]
+K6_ODD_SIZES = [0, 1, 1023, 1025, 4095, 4097, 10007]
+
+
+def _with_zeros(n: int, device, seed: int) -> torch.Tensor:
+    """Random residues with zeros every 997 elements and at the edges of
+    runs (a thread's 16) and tiles (4,096)."""
+    x = np.random.default_rng(seed).integers(0, gl.P, size=n, dtype=np.uint64)
+    edges = [0, 255, 256, 4095, 4096, 4097, 8191, n - 1] + list(range(5, n, 997))
+    x[[e for e in edges if 0 <= e < n]] = 0
+    return tensor_from_u64(x, device)
+
+
+@pytest.mark.parametrize("n", K6_PATH_SIZES + K6_ODD_SIZES)
+def test_k6_equals_the_plain_inverse(card, n):
+    from plonky2_bn254_tpu_torch.field import inv_cuda
+
+    x = _with_zeros(n, card, seed=n % 101)
+    before = kernels.LAUNCHES["K6"]
+    got = inv_cuda.batch_inv(x)
+    assert kernels.LAUNCHES["K6"] == before + (n > 0)
+    assert torch.equal(got, inv_cuda.batch_inv_plain(x))
+    if n and n % 2 == 0:  # any shape is one flat vector
+        assert torch.equal(inv_cuda.batch_inv(x.reshape(2, -1)), got.reshape(2, -1))
+
+
+def test_k6_reduces_its_inputs_and_matches_its_emulation(card):
+    """Words at or above p are reduced first (p and 0 give 0); the tile the
+    kernel reports is the emulation's."""
+    from plonky2_bn254_tpu_torch.field import inv_cuda
+
+    assert kernels.library().p2_batch_inverse_block() == inv_cuda.BLOCK
+    words = [0, 1, 2, gl.P - 1, gl.P, gl.P + 1, gl.P + 2, 2**64 - 1, 2**63, 2**32]
+    x = tensor_from_u64(np.array(words * 500, dtype=np.uint64), card)
+    got = inv_cuda.batch_inv(x)
+    assert torch.equal(got.cpu(), inv_cuda.emulate(x.cpu()))
+    assert [int(v) & (2**64 - 1) for v in got[:len(words)].tolist()] == [
+        gl.h_inv(w % gl.P) for w in words]
+
+
+def test_k6_rejects_what_it_does_not_take(card):
+    """A wrong dtype, a strided view or a tensor on neither the card nor the
+    host raises before any launch."""
+    from plonky2_bn254_tpu_torch.field import inv_cuda
+
+    before = kernels.LAUNCHES["K6"]
+    for bad in (torch.ones(64, dtype=torch.int32, device=card),
+                torch.ones(64, dtype=torch.int64, device=card)[::2],
+                torch.ones(64, dtype=torch.int64, device="meta")):
+        with pytest.raises(ValueError):
+            inv_cuda.batch_inv(bad)
+    assert kernels.LAUNCHES["K6"] == before
+
+
+@pytest.mark.parametrize("machine", ["g1", "fq_exp", "g2", "outer"])
+def test_k6_proofs_equal_the_plain_inverse_proofs(card, proof_cases, monkeypatch, machine):
+    """A device-FS proof with K6 is the proof that the plain inverse makes on
+    the card from the same trace, field by field; K6 launches once a batch
+    inversion of the proof (11 for each batch machine)."""
+    import chip_smoke
+    from plonky2_bn254_tpu_torch.field import inv_cuda
+    from plonky2_bn254_tpu_torch.prover import prove as prove_mod
+    from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG
+
+    stark, trace, ctl = proof_cases[machine]
+    as_json = lambda p: json.dumps(proof_to_fields(p), default=lambda v: v.tolist())
+    prove_mod.prove(stark, trace, ctl, DEFAULT_CONFIG, device_fs=True)  # caches the domain
+    kernels.reset_launches()
+    with_k6 = as_json(prove_mod.prove(stark, trace, ctl, DEFAULT_CONFIG, device_fs=True))
+    want = chip_smoke.k6_per_proof(stark, DEFAULT_CONFIG.num_challenges, True)
+    assert kernels.LAUNCHES["K6"] == want
+    if machine != "outer":
+        assert want == 11
+    monkeypatch.setattr(inv_cuda, "batch_inv", inv_cuda.batch_inv_plain)
+    kernels.reset_launches()
+    plain = as_json(prove_mod.prove(stark, trace, ctl, DEFAULT_CONFIG, device_fs=True))
+    assert kernels.LAUNCHES["K6"] == 0
+    assert with_k6 == plain
