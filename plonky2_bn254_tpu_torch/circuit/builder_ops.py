@@ -23,7 +23,12 @@ from typing import List, Optional
 import torch
 
 from ..bn254 import oracle, params
+from ..starks import fq_exp as fq_exp_machine
+from ..starks import g1_scalar_mul as g1_machine
+from ..starks import g2_scalar_mul as g2_machine
+from ..starks import table
 from . import biguint as bu
+from . import to_u16
 from .builder import CircuitBuilder, Generator
 from .curves import G1Target, G2Target
 from .fq import FqTarget
@@ -31,6 +36,33 @@ from .fq import FqTarget
 HOOK_KEY = "bn254"
 PERIOD = 512  # rows per op: G1_PERIOD == G2_PERIOD == FQ_PERIOD
 MIN_ROWS = 1 << 16  # the machines' range-counter column needs 2^16 rows
+
+
+def _fq_exp_rows(builder, inp, out):
+    """An fq_exp op's CTL value targets, its timestamp left out: (x, s) and x^s."""
+    s, x = inp
+    return (to_u16.fq_to_u16(builder, x) + to_u16.limbs32_to_u16(builder, s.limbs, 16),
+            to_u16.fq_to_u16(builder, out))
+
+
+def _scalar_mul_rows(point_to_u16):
+    """A scalar-mul op's CTL value targets, its timestamp left out: (x,
+    offset, s) and s x + offset."""
+
+    def ctl_rows(builder, inp, out):
+        s, x, offset = inp
+        return (point_to_u16(builder, x) + point_to_u16(builder, offset)
+                + to_u16.limbs32_to_u16(builder, s.limbs, 16), point_to_u16(builder, out))
+
+    return ctl_rows
+
+
+# op kind -> (machine module, Stark factory, CTL value targets of one op)
+MACHINES = {
+    "fq_exp": (fq_exp_machine, table.fq_exp_stark, _fq_exp_rows),
+    "g1_scalar_mul": (g1_machine, table.g1_scalar_mul_stark, _scalar_mul_rows(to_u16.g1_to_u16)),
+    "g2_scalar_mul": (g2_machine, table.g2_scalar_mul_stark, _scalar_mul_rows(to_u16.g2_to_u16)),
+}
 
 
 class Bn254Hook:
@@ -81,12 +113,6 @@ class Bn254Hook:
         extra-looking sums BIND those wires to the proven trace; at witness
         time (run_once, stark_proof.rs:136-179), prove the batch STARK,
         self-verify, and write the proof into its targets."""
-        from ..starks.table import (
-            fq_exp_stark,
-            g1_scalar_mul_stark,
-            g2_scalar_mul_stark,
-        )
-        from . import to_u16
         from .stark_verifier import (
             add_virtual_stark_proof,
             flatten_proof_targets,
@@ -105,39 +131,18 @@ class Bn254Hook:
                 dep_targets.extend(t.index for t in _to_vec(part))
             dep_targets.extend(t.index for t in _to_vec(out))
 
+        machine, make_stark, ctl_rows = MACHINES[kind]
         # ---- build-time: CTL value targets (ToU16 resplit) --------------
         in_rows, out_rows = [], []
         for t_idx, (inp, out) in enumerate(zip(inputs, outputs)):
             ts = builder.constant(t_idx)
-            if kind == "fq_exp":
-                s, x = inp
-                row = to_u16.fq_to_u16(builder, x)
-                row += to_u16.limbs32_to_u16(builder, s.limbs, 16)
-                in_rows.append(row + [ts])
-                out_rows.append(to_u16.fq_to_u16(builder, out) + [ts])
-            elif kind == "g1_scalar_mul":
-                s, x, offset = inp
-                row = to_u16.g1_to_u16(builder, x)
-                row += to_u16.g1_to_u16(builder, offset)
-                row += to_u16.limbs32_to_u16(builder, s.limbs, 16)
-                in_rows.append(row + [ts])
-                out_rows.append(to_u16.g1_to_u16(builder, out) + [ts])
-            else:
-                s, x, offset = inp
-                row = to_u16.g2_to_u16(builder, x)
-                row += to_u16.g2_to_u16(builder, offset)
-                row += to_u16.limbs32_to_u16(builder, s.limbs, 16)
-                in_rows.append(row + [ts])
-                out_rows.append(to_u16.g2_to_u16(builder, out) + [ts])
+            in_row, out_row = ctl_rows(builder, inp, out)
+            in_rows.append(in_row + [ts])
+            out_rows.append(out_row + [ts])
         ctl_target_rows = {0: in_rows, 1: out_rows}
 
         # ---- build-time: recursive STARK verifier sub-circuit -----------
-        mk = {
-            "fq_exp": fq_exp_stark,
-            "g1_scalar_mul": g1_scalar_mul_stark,
-            "g2_scalar_mul": g2_scalar_mul_stark,
-        }[kind]
-        stark = mk()
+        stark = make_stark()
         proof_t = add_virtual_stark_proof(builder, stark, degree_bits, config)
         self.proof_targets[kind] = proof_t
         verify_stark_proof_circuit(builder, stark, proof_t, ctl_target_rows, config)
@@ -148,14 +153,8 @@ class Bn254Hook:
         def run(w):
             from ..prover import prove as prove_mod
             from ..prover import verify as verify_mod
-            from ..starks import fq_exp, g1_scalar_mul, g2_scalar_mul
             from ..utils import timing as timing_mod
 
-            machine = {
-                "fq_exp": fq_exp,
-                "g1_scalar_mul": g1_scalar_mul,
-                "g2_scalar_mul": g2_scalar_mul,
-            }[kind]
             stark_inputs = [
                 tuple(part.get_witness(w) for part in inp) + (t,)
                 for t, inp in enumerate(inputs)

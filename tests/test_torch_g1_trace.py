@@ -75,6 +75,18 @@ def _rand_limbs(rng, k):
     return np.array([h_int_to_limbs(v) for v in vals], dtype=np.int64)
 
 
+def test_layout_lookups_and_ctls_match_jax():
+    """What the shared scalar-mul machine derives for G1 (layout, range-check
+    columns, lookup and CTL specs) equals the JAX package's."""
+    assert (g1_scalar_mul.LAYOUT.width, g1_scalar_mul.LAYOUT.offsets) == (
+        jg1.LAYOUT.width, jg1.LAYOUT.offsets)
+    assert g1_scalar_mul.RANGE_CHECK_COLS == jg1.RANGE_CHECK_COLS
+    assert (g1_scalar_mul.FREQ_COL, g1_scalar_mul.RANGE_COUNTER_COL) == (
+        jg1.FREQ_COL, jg1.RANGE_COUNTER_COL)
+    assert [vars(x) for x in g1_scalar_mul.lookups()] == [vars(x) for x in jg1.lookups()]
+    assert [vars(x) for x in g1_scalar_mul.ctls()] == [vars(x) for x in jg1.ctls()]
+
+
 def test_limb_arithmetic_matches_jax():
     rng = np.random.default_rng(0)
     c = rng.integers(-2**40, 2**40, (40, 31))

@@ -20,8 +20,9 @@ from plonky2_bn254_tpu.starks.table import g2_scalar_mul_stark as jstark
 from plonky2_bn254_tpu_torch.bn254 import oracle
 from plonky2_bn254_tpu_torch.bn254.params import P as BN_P
 from plonky2_bn254_tpu_torch.interop import u64_from_tensor
-from plonky2_bn254_tpu_torch.starks import air, bigint, fq2_alg, g2_add, g2_scalar_mul
-from plonky2_bn254_tpu_torch.starks.limbs import from_ints, h_limbs_to_int
+from plonky2_bn254_tpu_torch.starks import (air, bigint, fq2_alg, g1_scalar_mul, g2_add,
+                                            g2_scalar_mul)
+from plonky2_bn254_tpu_torch.starks.limbs import N_LIMBS, from_ints, h_int_to_limbs, h_limbs_to_int
 from plonky2_bn254_tpu_torch.starks.table import g2_scalar_mul_stark
 from torch_constraint_case import jax_case, port_accs
 
@@ -75,24 +76,39 @@ def g2_points():
     return [oracle.random_g2(rng) for _ in range(6)]
 
 
+CURVES = {"g1": (g1_scalar_mul.CURVE, oracle.random_g1, oracle.g1_add),
+          "g2": (g2_scalar_mul.CURVE, oracle.random_g2, oracle.g2_add)}
+
+
 @pytest.mark.parametrize("step", ["double", "mixed_add"])
-def test_jacobian_step_matches_oracle(g2_points, step):
-    """One jac_double of an affine point, or one jac_mixed_add of a Jacobian
-    point (Z != 1, from a doubling) and an affine one, normalised with
-    jac_to_affine, against the oracle."""
-    pts, qs = g2_points[:3], g2_points[3:]
-    X, Y = f2_dev([p[0] for p in pts]), f2_dev([p[1] for p in pts])
+@pytest.mark.parametrize("curve", list(CURVES))
+def test_jacobian_step_matches_oracle(curve, step):
+    """One double of an affine point, or one mixed_add of a Jacobian point
+    (Z != 1, from a doubling) and an affine one, normalised with to_affine,
+    against the oracle: the steps of `scalar_mul`'s chains over each curve."""
+    c, random_point, add = CURVES[curve]
+    rng = np.random.default_rng(7)
+    pts = [random_point(rng) for _ in range(6)]
+    pts, qs = pts[:3], pts[3:]
+
+    def coords(points):
+        """Affine points -> (x, y) tensors, as the machine's input bundle gives them."""
+        cols = torch.tensor([[limb for v in c.ints(p) for limb in h_int_to_limbs(v)]
+                             for p in points])
+        w = c.degree * N_LIMBS
+        return c.coord(cols[:, :w]), c.coord(cols[:, w:])
+
+    X, Y = coords(pts)
     Z = torch.zeros_like(X)
-    Z[0, :, 0] = 1
-    X, Y, Z = fq2_alg.jac_double(X, Y, Z)
-    want = [oracle.g2_add(p, p) for p in pts]
+    Z[(0,) * c.axis + (..., 0)] = 1
+    X, Y, Z = c.double(X, Y, Z)
+    want = [add(p, p) for p in pts]
     if step == "mixed_add":
-        X, Y, Z = fq2_alg.jac_mixed_add(X, Y, Z, f2_dev([q[0] for q in qs]),
-                                        f2_dev([q[1] for q in qs]))
-        want = [oracle.g2_add(w, q) for w, q in zip(want, qs)]
-    ax, ay = fq2_alg.jac_to_affine(X, Y, Z)
+        X, Y, Z = c.mixed_add(X, Y, Z, *coords(qs))
+        want = [add(w, q) for w, q in zip(want, qs)]
+    blocks = c.blocks(*c.to_affine(X, Y, Z))
     for i, w in enumerate(want):
-        assert (f2_host(ax, i), f2_host(ay, i)) == w, i
+        assert [h_limbs_to_int(b[i].tolist()) for b in blocks] == c.ints(w), i
 
 
 def _gl_values(block):
@@ -161,6 +177,8 @@ def test_layouts_match_jax():
                        (g2_add.G2_ADD_AUX_LAYOUT, jg2_add.G2_ADD_AUX_LAYOUT)]:
         assert (port.width, port.offsets) == (orig.width, orig.offsets)
     assert g2_scalar_mul.RANGE_CHECK_COLS == jg2.RANGE_CHECK_COLS
+    assert [vars(x) for x in g2_scalar_mul.lookups()] == [vars(x) for x in jg2.lookups()]
+    assert [vars(x) for x in g2_scalar_mul.ctls()] == [vars(x) for x in jg2.ctls()]
 
 
 def test_trace_defaults_to_the_card():
