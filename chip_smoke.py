@@ -25,7 +25,9 @@ Phases (any failure exits non-zero before the result line):
      on the device again (the first proof of a path meets cold tables),
      each with the launch counts set to 0 just before and read just after
      (every kernel launched, K5 once a proof, K6 once a batch inversion:
-     k6_per_proof; device FS through K2t, at most 16 transitions,
+     k6_per_proof; K7 K7_PER_PROOF times: a committed batch's openings
+     three times, the FRI oracle once; device FS through K2t, at most 16
+     transitions,
      and K2 never at [1, 12]; host FS no K2t), its synchronised
      wall and its synchronising CUDA operations (torch.cuda sync debug
      mode) by site; the proofs equal field by field; the device-FS
@@ -97,6 +99,10 @@ Phases (any failure exits non-zero before the result line):
      torch, timed beside the bound of its tape's operations and the bytes
      it reads (bounds.quotient_work); K6 (the batch inverse) with a zero
      every 997 elements and at both ends, timed beside bounds.batch_inv_work;
+     K7 (the openings at zeta and zeta g, the FRI oracle) at every key and
+     at K7_ODD_KEYS, on random values with device challenges, against
+     prove._openings_plain and prove._fri_oracle_plain, timed beside
+     bounds.combine_work (the oracle's call with its norms and K6 inverses);
   9. per path, the stage times and wall of one proof under the
      span timer (TimingTree) and its peak device memory; on the machine paths
      its stages beside the host-FS proof's of phase 5.
@@ -171,9 +177,19 @@ KERNELS = {
     # Montgomery batch in tensor operations, now one launch
     "K6": ("batch_inv", "plonky2_bn254_tpu_torch/csrc/inverse.cu",
            "plonky2_bn254_tpu/field/goldilocks.py batch_inv"),
+    # no pallas_call: the reference sums the openings and the FRI oracle in
+    # XLA; the port's plain power tables, products and add trees, now K7r
+    # (a batch at zeta and zeta g) and K7c (the oracle over every batch)
+    "K7": ("openings / oracle", "plonky2_bn254_tpu_torch/csrc/combine.cu",
+           "plonky2_bn254_tpu/prover/prove.py (openings, FRI oracle)"),
 }
 K5_ODD_N = 1000  # coset points beside each path key: not a multiple of a block
 K6_ZERO_EVERY = 997  # K6's inputs hold a zero this often (and at both ends)
+K7_PER_PROOF = 4  # the openings of the trace, aux and quotient batches; the FRI oracle
+# K7 beside the path keys: one row; n below a tile (64); a few rows; an
+# oracle of one batch, of four
+K7_ODD_KEYS = [("openings", 1, 1 << 12), ("openings", 7, 64), ("openings", 5, 1 << 12),
+               ("oracle", 512, 3), ("oracle", 1 << 12, 100, 50, 4, 3)]
 
 
 def k6_per_proof(stark, num_challenges: int, device_fs: bool) -> int:
@@ -481,6 +497,7 @@ def compare_kernels(device, calls_by_path: dict, sms: int, clock_mhz: float) -> 
         k2t_check = start_k2t(device, calls_by_path, sms, clock_mhz, pool)
         results = compare_by_key(device, calls_by_path, sms, clock_mhz)
         results["K5"] = compare_k5(device, calls_by_path, sms, clock_mhz)
+        results["K7"] = compare_k7(device, calls_by_path, sms, clock_mhz)
         results["K2t"] = k2t_check()
     return results
 
@@ -540,6 +557,82 @@ def compare_k5(device, calls_by_path: dict, sms: int, clock_mhz: float) -> dict:
     log(f"  K5: equal to plain at {len(timed)} path and {len(odd)} odd shapes, "
         f"max_abs_err {err}; {len(calls) - len(timed)} launched keys without a held machine")
     torch.cuda.empty_cache()
+    return {"max_abs_err": err, "timed": rows}
+
+
+def k7_case(rng, key: tuple, device) -> tuple:
+    """(kernel, plain version) of one K7 key on random values
+    (coefficients ending in p - 1) and device challenges: ("openings", k,
+    n) at two points or ("oracle", N, rows of each batch...)."""
+    from plonky2_bn254_tpu_torch.field import goldilocks as gl
+    from plonky2_bn254_tpu_torch.field.extension import Ext
+    from plonky2_bn254_tpu_torch.prover import combine_cuda
+    from plonky2_bn254_tpu_torch.prover import prove as prove_mod
+
+    if key[0] == "openings":
+        _, k, n = key
+        c = rand_residues(rng, (k, n), device)
+        c[:, -1] = gl.i64(gl.P - 1)
+        zs = [Ext(*rand_residues(rng, (2,), device)) for _ in range(2)]
+        return (lambda: combine_cuda.openings(c, zs),
+                lambda: torch.stack([prove_mod._openings_plain(c, z) for z in zs]))
+    _, n, *rows = key
+    batches = [rand_residues(rng, (r, n), device) for r in rows]
+    alpha = rand_residues(rng, (sum(rows), 2), device)
+    zeta, zeta_g, s_zeta, s_zeta_g, alpha_n = (Ext(*rand_residues(rng, (2,), device))
+                                               for _ in range(5))
+    return (lambda: combine_cuda.oracle(batches, alpha, (zeta, zeta_g, s_zeta, s_zeta_g, alpha_n)),
+            lambda: torch.stack(prove_mod._fri_oracle_plain(batches, alpha, s_zeta, s_zeta_g,
+                                                            zeta, zeta_g, alpha_n)))
+
+
+def compare_k7(device, calls_by_path: dict, sms: int, clock_mhz: float) -> dict:
+    """K7 against its plain versions on the card at every key a path
+    launched it with and at K7_ODD_KEYS (k7_case); each path key timed (mean
+    of 20, CUDA events) beside bounds.combine_work, the plain version at the
+    first and last key of each entry point."""
+    from plonky2_bn254_tpu_torch import bounds
+
+    rng = np.random.default_rng(SEED)
+    calls = Counter()
+    for per_path in calls_by_path.values():
+        calls.update(per_path["K7"])
+
+    def work_of(key):
+        if key[0] == "openings":
+            return bounds.combine_work(key[1], key[2], 2)
+        return bounds.combine_work(sum(key[2:]), key[1], 2, over_rows=True)
+
+    timed = sorted(calls, key=lambda k: bounds.bound_ms(*work_of(k), sms, clock_mhz)[0],
+                   reverse=True)
+    ends = set()
+    for entry in ("openings", "oracle"):
+        at = [i for i, k in enumerate(timed) if k[0] == entry]
+        ends.update(at[:1] + at[-1:])
+    err, rows = 0, []
+    for i, key in enumerate(timed + [k for k in K7_ODD_KEYS if k not in calls]):
+        kern, plain = k7_case(rng, key, device)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, want))
+        if not torch.equal(got, want):
+            raise AssertionError(f"K7 {key}: {int((got != want).sum())} values differ from the "
+                                 f"plain version")
+        del got, want
+        if i < len(timed):
+            ms = cuda_ms(kern, reps=20)
+            plain_ms = cuda_ms(plain, reps=1, warm_up=False) if i in ends else None
+            bound, bound_by = bounds.bound_ms(*work_of(key), sms, clock_mhz)
+            per_path = {p: calls_by_path[p]["K7"].get(key, 0) for p in calls_by_path}
+            rows.append({"key": list(key), "launches": per_path, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound, "bound_by": bound_by, "share": bound / ms})
+            log(f"  K7 {key} x{per_path}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
+                f"({bound_by}), share {bound / ms:.3f}"
+                + (f", plain {plain_ms:.3f} ms" if plain_ms is not None else ""))
+        del kern, plain
+        torch.cuda.empty_cache()
+    n_odd = len([k for k in K7_ODD_KEYS if k not in calls])
+    log(f"  K7: equal to plain at {len(timed)} path and {n_odd} odd keys, max_abs_err {err}")
     return {"max_abs_err": err, "timed": rows}
 
 
@@ -710,6 +803,9 @@ def flow_run(path: Path, trace, device_fs: bool):
     if launches["K6"] != k6_want:
         raise AssertionError(f"path {path.name} ({flow}): K6 launched {launches['K6']} times, "
                              f"not the {k6_want} batch inversions of the proof")
+    if launches["K7"] != K7_PER_PROOF:
+        raise AssertionError(f"path {path.name} ({flow}): K7 launched {launches['K7']} times, "
+                             f"not {K7_PER_PROOF}")
     return proof, {"wall_s": wall, "syncs": sum(sites.values()), "sync_sites": dict(sites),
                    "launches": launches, "k2_single_launches": k2_single,
                    "k2t_launches": launches["K2t"], "peak_gb": peak, "calls": calls}
@@ -844,7 +940,7 @@ def mesh_model_bytes(stark_width: int, fields: dict, n_log: int, D: int) -> int:
 
 def check_mesh_case(name: str, machine: str, kw: dict, ranks: list, i: int, want: str) -> None:
     """Case `i` on every rank: the single-device proof; K1, K2 and K3
-    launched, K4 not, K2 never at [1, 12], K2t (at most MAX_TRANSITIONS
+    launched, K4 not, K7 K7_PER_PROOF times, K2 never at [1, 12], K2t (at most MAX_TRANSITIONS
     times) only with the device transcript; the trace's columns split over
     tp (one gather there) only where its width divides."""
     device_fs = bool(kw.get("device_fs"))
@@ -855,7 +951,7 @@ def check_mesh_case(name: str, machine: str, kw: dict, ranks: list, i: int, want
         n = p["launches"]
         k2t_ok = 0 < n["K2t"] <= MAX_TRANSITIONS if device_fs else n["K2t"] == 0
         if (min(n["K1"], n["K2"], n["K3"]) <= 0 or n["K4"] or not k2t_ok
-                or p["calls"]["K2"].get((1,), 0)):
+                or n["K7"] != K7_PER_PROOF or p["calls"]["K2"].get((1,), 0)):
             raise AssertionError(f"mesh {name}, rank {r}: launches {n}, K2 keys {p['calls']['K2']}")
         if "col_axis" in kw:
             tp = p["stats"]["by_axes"]["tp"]
@@ -1094,9 +1190,9 @@ def compose_first_proof(path: Compose) -> dict:
     missing = [k for k in kernels.KERNEL_IDS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"path compose never launched {missing} on the outer proof")
-    if k2_single or launches["K2t"] > MAX_TRANSITIONS:
+    if k2_single or launches["K2t"] > MAX_TRANSITIONS or launches["K7"] != K7_PER_PROOF:
         raise AssertionError(f"compose outer proof: K2 at [1, 12] {k2_single} times, "
-                             f"K2t {launches['K2t']}")
+                             f"K2t {launches['K2t']}, K7 {launches['K7']}")
 
     statement = sum(v << (32 * i) for i, v in enumerate(path.publics))
     if statement != path.outs[0][1]:

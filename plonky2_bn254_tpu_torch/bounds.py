@@ -250,6 +250,32 @@ def batch_inv_work(n: int) -> tuple:
     return (products * OP_COST["mul"], 16 * n, FERMAT_PRODUCTS * OP_LATENCY["mul"])
 
 
+def combine_work(k: int, n: int, points: int, over_rows: bool = False) -> tuple:
+    """(ops, bytes) of K7 on a [k, n] batch of base values, each weighted
+    by extension values and summed, in the cheapest form known: a product
+    kept as 128 bits (`mul` less its `reduce`: the sums defer their
+    reduction, so pricing each product as a full `mul` would let a kernel
+    beat its bound), one `reduce` a coordinate of each sum, the adds into
+    the sums not counted; each input word read once, each output written
+    once.
+      K7r (the openings, over_rows False): each row's sum over its n
+    coefficients at `points` points, 2 points products a coefficient; the
+    powers z^t made on chip, one extension product (3 products) a power
+    and point.
+      K7c (the FRI oracle, over_rows True): each of the n coset points' sum
+    over the k rows, alpha^j read (16 bytes a row), 2 products a value;
+    then `points` quotients a coset point, each a norm (2 products), its
+    inverse (3, Montgomery's trick), the inverse's coordinates (2) and the
+    numerator times it (3), and alpha^n times the last (3)."""
+    wide = OP_COST["mul"] - OP_COST["reduce"]
+    if not over_rows:
+        ops = (2 * points * k * n * wide + 2 * points * k * OP_COST["reduce"]
+               + 3 * points * n * OP_COST["mul"])
+        return ops, 8 * k * n + 16 * points * k
+    ops = 2 * k * n * wide + 2 * n * OP_COST["reduce"] + (10 * points + 3) * n * OP_COST["mul"]
+    return ops, 8 * k * n + 16 * k + 16 * n
+
+
 def bound_ms(ops: int, nbytes: int, sms: int, clock_mhz: float, chain_cycles: int = 0) -> tuple:
     """(bound in ms, "operations" or "bytes").  `chain_cycles`: the critical
     path of operations that depend on one another (K1, K2, K2t, K6), which

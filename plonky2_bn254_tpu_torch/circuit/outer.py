@@ -907,11 +907,9 @@ def verify_outer(data: OuterData, proof, public_values: List[int], config=None):
     zeta = verify_mod.verify(data.stark, proof, ctl_values, config)
 
     g = gl.primitive_root_of_unity(data.n_log)
-    for point, opened in (
-        (zeta, proof.openings.trace_zeta),
-        (zeta.scalar_mul(g), proof.openings.trace_zeta_g),
-    ):
-        c0s, c1s = u64_from_tensor(prove_mod._openings(data.vk_coeffs, point))
+    mine = u64_from_tensor(prove_mod._openings(data.vk_coeffs, (zeta, zeta.scalar_mul(g))))
+    for (c0s, c1s), opened in zip(mine, (proof.openings.trace_zeta,
+                                         proof.openings.trace_zeta_g)):
         for j, col in enumerate(range(lay.idx, lay.width)):
             o = opened[col]
             if int(c0s[j]) != o.c0 or int(c1s[j]) != o.c1:

@@ -26,7 +26,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("poseidon.cu", "ntt.cu", "quotient.cu", "inverse.cu")
+SOURCES = ("poseidon.cu", "ntt.cu", "quotient.cu", "inverse.cu", "combine.cu")
 HEADERS = ("goldilocks.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -38,8 +38,9 @@ _COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared")
 # below the regime threshold in one launch), K2 raw permutation, K2t one
 # transcript transition (absorb and squeeze on one sponge state), K3
 # NTT/iNTT, K4 coset LDE, K5 the quotient's constraints (a machine's tape
-# at every coset point), K6 a batch of inverses.
-KERNEL_IDS = ("K1", "K1m", "K2", "K2t", "K3", "K4", "K5", "K6")
+# at every coset point), K6 a batch of inverses, K7 the extension-weighted
+# sums (a batch's openings at zeta and zeta g; the FRI oracle).
+KERNEL_IDS = ("K1", "K1m", "K2", "K2t", "K3", "K4", "K5", "K6", "K7")
 LAUNCHES: Counter = Counter({k: 0 for k in KERNEL_IDS})
 # kernel id -> Counter of the keys its launches were made with (see the wrappers)
 CALLS: dict = {k: Counter() for k in KERNEL_IDS}
@@ -64,10 +65,19 @@ _SIGNATURES = {
                          _VP, _VP, _I64, _VP, _VP, _I64, _VP, _VP, _I64, _VP),
     "p2_batch_inverse_block": (),
     "p2_batch_inverse": (_VP, _VP, _I64, _VP),
+    "p2_combine_threads": (),
+    "p2_combine_max_tile": (),
+    "p2_combine_max_batches": (),
+    "p2_combine_openings": (_VP, _I64, _I64, _VP, _VP, _INT, _INT, _VP, _VP, _VP),
+    "p2_combine_norms": (_I64, _VP, _VP, _I64, _VP, _VP),
+    "p2_combine_oracle": (_VP, _VP, _INT, _I64, _VP, _I64, _INT, _I64, _VP, _VP, _VP, _VP,
+                          _I64, _VP, _VP, _VP),
 }
 
 # the others return a CUDA error code
-_RESTYPES = {"p2_tree_counters": _I64, "p2_batch_inverse_block": _I64}
+_RESTYPES = {"p2_tree_counters": _I64, "p2_batch_inverse_block": _I64,
+             "p2_combine_threads": _I64, "p2_combine_max_tile": _I64,
+             "p2_combine_max_batches": _I64}
 
 
 class BuildInfo:

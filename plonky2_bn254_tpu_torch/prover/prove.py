@@ -18,7 +18,10 @@ Merkle sponge (K1); the quotient's constraints are one K5 launch a proof
 (the machine's tape at every coset point); the FRI grind uses K2, each
 transition of the device transcript is one K2t launch, and each batch
 inversion (the LogUp helpers and table, the CTL denominators and totals,
-the FRI oracle's norms, the domain's selectors) is one K6 launch.
+the FRI oracle's norms, the domain's selectors) is one K6 launch.  The
+openings and the FRI oracle's combination are K7 (`combine_cuda`): one
+launch a committed batch reads its coefficients once for zeta and zeta g,
+and one pass over every LDE batch makes the oracle.
 
 On a mesh (`prove(..., mesh=...)`, `parallel/mesh.py`) every rank runs
 either flow on its contiguous block of the rows: the commits take the mesh
@@ -52,6 +55,7 @@ from ..parallel.mesh import Mesh, Mesh2D, all_gather, exchange, shard_rows
 from ..starks.air import GL, ConstraintConsumer, GLRing
 from ..starks.table import KeyedLookup, Stark
 from ..utils import timing as timing_mod
+from . import combine_cuda
 from . import constraints as cons
 from . import device_challenger as dcm
 from . import fri as fri_mod
@@ -425,21 +429,35 @@ def _ext_pow(z, e: int):
 def _block_offsets(zeta, g: int, nb: int, mesh: Mesh = None):
     """(zeta^k, (zeta g)^k) for k = r nb, the power at which rank r's block
     of nb coefficients starts: once per proof (for a device zeta a chain of
-    ~log2 k squarings), shared by the six `_openings` calls; (None, None)
-    off a mesh."""
+    ~log2 k squarings), shared by the three `_openings` calls; None off a
+    mesh."""
     if mesh is None:
-        return None, None
+        return None
     k = mesh.rank * nb
     zk = _ext_pow(zeta, k)
     return zk, _times_const(zk, pow(g, k, gl.P))
 
 
-def _openings(coeffs: torch.Tensor, z, mesh: Mesh = None, offset=None):
-    """[2, k]: (c0, c1) of f_i(z) for every row of `coeffs` ([k, n]); `z` a
-    host `GLExt` or an `Ext` of 0-d tensors.  On a mesh `coeffs` is this
-    rank's block [k, n/D] and `offset` = z^(r n/D) (`_block_offsets`): each
-    rank sums its terms z^(r n/D + t) c_t, and the D partial sums are
-    gathered and added mod p."""
+def _openings(coeffs: torch.Tensor, points, mesh: Mesh = None, offsets=None):
+    """[2, 2, k]: (c0, c1) of f_i(z) for every row of `coeffs` ([k, n]) at
+    each of the two points z (zeta and zeta g), host `GLExt`s or `Ext`s of
+    0-d tensors.  On a mesh `coeffs` is this rank's block [k, n/D] and
+    `offsets` the points' z^(r n/D) (`_block_offsets`): each rank sums its
+    terms z^(r n/D + t) c_t, and the D partial sums are gathered and added
+    mod p.  A CUDA tensor takes one K7 launch for both points
+    (`combine_cuda.openings`), a CPU tensor the plain version a point at a
+    time."""
+    if kernels.is_plain(coeffs):
+        return torch.stack([_openings_plain(coeffs, z, mesh, off)
+                            for z, off in zip(points, offsets or (None,) * len(points))])
+    out = combine_cuda.openings(coeffs.contiguous(), points, offsets)
+    if mesh is None:
+        return out
+    return cons.tree_reduce0(all_gather(mesh, out[None], axis=0))
+
+
+def _openings_plain(coeffs: torch.Tensor, z, mesh: Mesh = None, offset=None):
+    """`_openings` at one point in plain torch: [2, k]."""
     p = _ext_powers(z, coeffs.shape[-1], coeffs.device)
     if mesh is not None:
         p = ext_scale(p, offset)
@@ -468,7 +486,27 @@ def _fri_oracle(lde_batches, alpha_pows, s_zeta, s_zeta_g, zeta, zeta_g, alpha_o
     on the LDE coset, with S = sum_j alpha^j f_j.  `alpha_pows`: [n_polys, 2]
     rows (c0, c1) of alpha^j (a tensor, or host values); the scalars are host
     `GLExt`s or `Ext`s of 0-d tensors.  On a mesh the LDEs are this rank's
-    blocks, and every rank gets the whole F (one gather of [2, N])."""
+    blocks, and every rank gets the whole F (one gather of [2, N]).  CUDA
+    tensors take K7 (`combine_cuda.oracle`), CPU tensors the plain
+    version."""
+    if kernels.is_plain(lde_batches[0]):
+        return _fri_oracle_plain(lde_batches, alpha_pows, s_zeta, s_zeta_g, zeta, zeta_g,
+                                 alpha_off, mesh)
+    dev = lde_batches[0].device
+    N = lde_batches[0].shape[-1]
+    if not isinstance(alpha_pows, torch.Tensor):
+        alpha_pows = tensor_from_u64(np.array(alpha_pows, dtype=np.uint64), dev)
+    rank, size = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    F = combine_cuda.oracle([b.contiguous() for b in lde_batches], alpha_pows.contiguous(),
+                            (zeta, zeta_g, s_zeta, s_zeta_g, alpha_off), rank * N, size * N)
+    if mesh is None:
+        return Ext(F[0], F[1])
+    return Ext(*all_gather(mesh, F, axis=1))
+
+
+def _fri_oracle_plain(lde_batches, alpha_pows, s_zeta, s_zeta_g, zeta, zeta_g, alpha_off,
+                      mesh: Mesh = None):
+    """`_fri_oracle` in plain torch."""
     dev = lde_batches[0].device
     N = lde_batches[0].shape[-1]
     block = slice(0, N) if mesh is None else slice(mesh.rank * N, (mesh.rank + 1) * N)
@@ -669,9 +707,9 @@ def _prove(stark, trace_rows, ctl_values, config, tt, device_fs, mesh, mesh_axis
     with tt.scope("openings"):
         offsets = _block_offsets(zeta, g, t_coeffs.shape[-1], mesh)
         openings = _openings_from_rows([
-            u64_from_tensor(_openings(coeffs, z, mesh, off))
+            pair
             for coeffs in (t_coeffs, a_coeffs, q_chunks)
-            for z, off in zip((zeta, zeta_g), offsets)
+            for pair in u64_from_tensor(_openings(coeffs, (zeta, zeta_g), mesh, offsets))
         ])
     del t_coeffs, a_coeffs  # openings done; only LDEs are queried below
     for vals, vals_g in openings.all_polys_order():
@@ -940,9 +978,9 @@ def _prove_device_fs(stark: Stark, trace_cols: torch.Tensor, ctl_values, config:
     with tt.scope("openings"):
         offsets = _block_offsets(zeta, g, t_coeffs.shape[-1], mesh)
         opens = [
-            _openings(coeffs, z, mesh, off)
+            pair
             for coeffs in (t_coeffs, a_coeffs, q_chunks)
-            for z, off in zip((zeta, zeta_g), offsets)
+            for pair in _openings(coeffs, (zeta, zeta_g), mesh, offsets)
         ]
     del t_coeffs, a_coeffs  # openings done; only LDEs are queried below
     with tt.scope("fs4"):

@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels K1-K6, K1m and K2t against their plain PyTorch versions.
+"""Hand-written CUDA kernels K1-K7, K1m and K2t against their plain PyTorch versions.
 
 These need an NVIDIA card with nvcc and skip without one.  On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -916,3 +916,155 @@ def test_k6_proofs_equal_the_plain_inverse_proofs(card, proof_cases, monkeypatch
     plain = as_json(prove_mod.prove(stark, trace, ctl, DEFAULT_CONFIG, device_fs=True))
     assert kernels.LAUNCHES["K6"] == 0
     assert with_k6 == plain
+
+
+# ---------------------------------------------------------------------------
+# K7: the openings and the FRI oracle (prover/combine_cuda.py, csrc/combine.cu)
+# ---------------------------------------------------------------------------
+
+# (k, n) of the openings the paths launch: G2's, G1's and FqExp's trace, aux
+# and quotient batches at 2^16 rows, the outer proof's trace and quotient at
+# 2^20; then one row, n below a tile, the outer verifier's constant columns
+K7_OPENINGS_KEYS = [(1295, 1 << 16), (906, 1 << 16), (781, 1 << 16), (456, 1 << 16),
+                    (427, 1 << 16), (134, 1 << 16), (4, 1 << 16), (108, 1 << 20), (4, 1 << 20)]
+K7_OPENINGS_ODD = [(1, 1 << 12), (7, 64), (29, 1 << 16)]
+# (N, rows of each batch): each machine's oracle over its trace, aux and
+# quotient LDEs at 2^17 points, an outer proof's at 2^21; one batch, four
+K7_ORACLE_KEYS = [(1 << 17, (1295, 906, 4)), (1 << 17, (781, 456, 4)), (1 << 17, (427, 134, 4)),
+                  (1 << 21, (108, 30, 4))]
+K7_ORACLE_ODD = [(512, (3,)), (1 << 12, (100, 50, 4, 3))]
+
+
+def _k7_points(count, device, seed):
+    from plonky2_bn254_tpu_torch.field.extension import Ext
+
+    return [Ext(*_rand((2,), device, seed=seed + i)) for i in range(count)]
+
+
+@pytest.mark.parametrize("k, n", K7_OPENINGS_KEYS + K7_OPENINGS_ODD)
+def test_k7_openings_equal_the_plain_version(card, k, n):
+    from plonky2_bn254_tpu_torch.prover import combine_cuda
+    from plonky2_bn254_tpu_torch.prover import prove as prove_mod
+
+    c = _rand((k, n), card, seed=k + n)
+    c[:, -1] = gl.i64(gl.P - 1)
+    zs = _k7_points(2, card, seed=k)
+    before = kernels.LAUNCHES["K7"]
+    got = combine_cuda.openings(c, zs)
+    assert kernels.LAUNCHES["K7"] == before + 1
+    assert kernels.CALLS["K7"][("openings", k, n)] >= 1
+    assert torch.equal(got, torch.stack([prove_mod._openings_plain(c, z) for z in zs]))
+
+
+def test_k7_mesh_blocks_with_offsets_sum_to_the_whole(card):
+    """Rank blocks with `prove._block_offsets`' offsets (a device zeta) add
+    up to the whole opening."""
+    import types
+
+    from plonky2_bn254_tpu_torch.prover import combine_cuda
+    from plonky2_bn254_tpu_torch.prover import prove as prove_mod
+
+    D, k, n = 4, 427, 1 << 16
+    c = _rand((k, n), card, seed=3)
+    g = gl.primitive_root_of_unity(16)
+    zeta = _k7_points(1, card, seed=5)[0]
+    zeta_g = prove_mod._times_const(zeta, g)
+    total = torch.zeros((2, 2, k), dtype=torch.int64, device=card)
+    for r in range(D):
+        off = prove_mod._block_offsets(zeta, g, n // D, types.SimpleNamespace(rank=r))
+        part = combine_cuda.openings(c[:, r * n // D : (r + 1) * n // D].contiguous(),
+                                     (zeta, zeta_g), off)
+        total = gl.add(total, part)
+    want = torch.stack([prove_mod._openings_plain(c, z) for z in (zeta, zeta_g)])
+    assert torch.equal(total, want)
+
+
+@pytest.mark.parametrize("N, rows", K7_ORACLE_KEYS + K7_ORACLE_ODD)
+def test_k7_oracle_equals_the_plain_version(card, N, rows):
+    from plonky2_bn254_tpu_torch.prover import combine_cuda
+    from plonky2_bn254_tpu_torch.prover import prove as prove_mod
+
+    batches = [_rand((r, N), card, seed=r + i) for i, r in enumerate(rows)]
+    batches[0][-1] = gl.i64(gl.P - 1)
+    alpha = _rand((sum(rows), 2), card, seed=N % 97)
+    zeta, zeta_g, s_zeta, s_zeta_g, alpha_n = _k7_points(5, card, seed=len(rows))
+    before = kernels.LAUNCHES["K7"]
+    got = combine_cuda.oracle(batches, alpha, (zeta, zeta_g, s_zeta, s_zeta_g, alpha_n))
+    assert kernels.LAUNCHES["K7"] == before + 1
+    assert kernels.CALLS["K7"][("oracle", N, *rows)] >= 1
+    want = prove_mod._fri_oracle_plain(batches, alpha, s_zeta, s_zeta_g, zeta, zeta_g, alpha_n)
+    assert torch.equal(got, torch.stack(want))
+
+
+def test_k7_matches_its_emulations(card):
+    """Ragged n and any 64-bit words (which the plain version's add tree
+    does not take), and a mesh rank's oracle block: the kernel equals its
+    schedule emulated on the CPU with this card's SM count."""
+    from plonky2_bn254_tpu_torch.prover import combine_cuda as cc
+
+    sms = cc.sm_count(card)
+    assert kernels.library().p2_combine_threads() == cc.THREADS
+    assert kernels.library().p2_combine_max_tile() == cc.MAX_TILE
+    assert kernels.library().p2_combine_max_batches() == cc.MAX_BATCHES
+    for k, n in [(3, 300), (2, 2 * cc.MAX_TILE + 17), (5, 3 * cc.MAX_TILE)]:
+        c = _rand((k, n), card, seed=n, full_range=True)
+        zs = _k7_points(2, card, seed=n)
+        assert torch.equal(cc.openings(c, zs).cpu(),
+                           cc.emulate_openings(c.cpu(), [z._replace(c0=z.c0.cpu(), c1=z.c1.cpu())
+                                                         for z in zs], sms=sms))
+    N, D = 1 << 12, 4
+    batches = [_rand((r, N // D), card, seed=r, full_range=True) for r in (150, 60, 4)]
+    alpha = _rand((214, 2), card, seed=7)
+    scal = _k7_points(5, card, seed=11)
+    got = cc.oracle(batches, alpha, scal, x_base=N // D, n_all=N)
+    want = cc.emulate_oracle([b.cpu() for b in batches], alpha.cpu(),
+                             [z._replace(c0=z.c0.cpu(), c1=z.c1.cpu()) for z in scal],
+                             x_base=N // D, n_all=N, sms=sms)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_k7_rejects_what_it_does_not_take(card):
+    """A wrong dtype or rank, a strided view, one point or three,
+    mismatched batches or alpha rows raise before any launch."""
+    from plonky2_bn254_tpu_torch.prover import combine_cuda
+
+    zs = _k7_points(3, card, seed=1)
+    c = _rand((4, 256), card)
+    before = kernels.LAUNCHES["K7"]
+    for bad, pts in ((c.to(torch.int32), zs[:2]), (c[0], zs[:2]), (c[:, ::2], zs[:2]),
+                     (c, zs), (c, zs[:1]), (c.cpu(), zs[:2])):
+        with pytest.raises(ValueError):
+            combine_cuda.openings(bad, pts)
+    b = _rand((3, 256), card)
+    for batches, alpha in (([b, _rand((2, 128), card)], _rand((5, 2), card)),
+                           ([b], _rand((4, 2), card)), ([b] * 5, _rand((15, 2), card))):
+        with pytest.raises(ValueError):
+            combine_cuda.oracle(batches, alpha, zs[:1] * 5)
+    assert kernels.LAUNCHES["K7"] == before
+
+
+@pytest.mark.parametrize("machine", ["g1", "fq_exp", "g2", "outer"])
+def test_k7_proofs_equal_the_plain_proofs(card, proof_cases, monkeypatch, machine):
+    """A device-FS proof with K7 is the proof that the plain openings and
+    oracle make on the card from the same trace, field by field; K7 runs
+    four times a proof (three batches' openings, the oracle)."""
+    from plonky2_bn254_tpu_torch.prover import prove as prove_mod
+    from plonky2_bn254_tpu_torch.prover.config import DEFAULT_CONFIG
+
+    stark, trace, ctl = proof_cases[machine]
+    as_json = lambda p: json.dumps(proof_to_fields(p), default=lambda v: v.tolist())
+    kernels.reset_launches()
+    with_k7 = as_json(prove_mod.prove(stark, trace, ctl, DEFAULT_CONFIG, device_fs=True))
+    assert kernels.LAUNCHES["K7"] == 4
+    assert sum(v for key, v in kernels.CALLS["K7"].items() if key[0] == "openings") == 3
+
+    def plain_openings(coeffs, points, mesh=None, offsets=None):
+        return torch.stack([prove_mod._openings_plain(coeffs, z, mesh, off)
+                            for z, off in zip(points, offsets or (None,) * len(points))])
+
+    monkeypatch.setattr(prove_mod, "_openings", plain_openings)
+    monkeypatch.setattr(prove_mod, "_fri_oracle", prove_mod._fri_oracle_plain)
+    kernels.reset_launches()
+    plain = as_json(prove_mod.prove(stark, trace, ctl, DEFAULT_CONFIG, device_fs=True))
+    assert kernels.LAUNCHES["K7"] == 0
+    assert with_k7 == plain
